@@ -1,0 +1,106 @@
+"""Typed configuration: the JAX package's SpairConfig, field for field.
+
+Same fields and defaults as ``split_vae_tpu/core/config.py`` (BaseConfig and
+SpairConfig); the argument parsers come with the CLI. ``config5`` gives
+BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as ``bench.py::measure_spair``
+sets it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass
+class BaseConfig:
+    seed: int = 0
+    data_dir: str = "data"
+    output_dir: str = "output"
+    eval_interval: Optional[int] = None
+    checkpoint_interval: int = 10000
+    resume: Optional[str] = None
+    num_data_shards: int = 0
+    num_model_shards: int = 1
+    compute_dtype: str = "float32"  # only float32 is ported so far
+    profile_dir: Optional[str] = None
+    debug_nans: bool = False
+    log_every: int = 100
+    synthetic_data: bool = False
+    synthetic_size: int = 0
+    synthetic_style: str = "blobs"
+    platform: Optional[str] = None
+    host_data: bool = False
+    coordinator: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class SpairConfig(BaseConfig):
+    """spair/main.py:19-50 flag set (+ the reference's phantom options)."""
+
+    learning_rate: float = 1e-4
+    beta: float = 0.5
+    dataset: str = "cub_solid_fixed"
+    channel: int = 3
+    training_steps: int = 100_000
+    batch_size: int = 32
+    runs: int = 1
+    tau: float = 0.8
+    object_size: int = 32
+    latent_size: int = 128
+    no_label: bool = False
+    anneal_until: float = 1.0
+    z_pres_anneal_step: float = 10_000.0
+    prior_z_zoom: float = 0.0
+    prior_z_zoom_start: float = 10.0
+    reconstruction_weight: float = 1.0
+    bg_latent_size: int = 4
+    local_latent_size: int = 64
+    z_bg_beta: float = 10.0
+    z_l_beta: float = 0.1
+    z_what_beta: float = 0.1
+    model: str = "spair"
+    patch_size: int = 4
+    augmentation: str = "scramble"
+    split_z_l: bool = False
+    dense_bg: bool = False
+    dense_local: bool = False
+    concat_bg: bool = False
+    concat_z_what: bool = False
+    concat_backbone: bool = False
+    bg_model: bool = False
+    concat_z_bg: bool = False
+    # The fused paste+composite render (the CUDA kernel pair on a GPU).
+    fused_render: bool = True
+    no_fused_render: bool = False
+    interpret_fused: bool = False
+
+    # [H, W, C]
+    image_size: Tuple[int, int, int] = (48, 48, 3)
+    test_size: Tuple[int, int, int] = (48, 48, 3)
+
+    @property
+    def label(self) -> bool:
+        return not self.no_label
+
+    def __post_init__(self):
+        if self.eval_interval is None:
+            self.eval_interval = 1_000
+
+
+# BASELINE config #5: LG-SPAIR, Multi-Bird-Hard (bench.py:114-119).
+CONFIG5 = dict(
+    model="lg_spair", dataset="cub_ckb_rot_6", batch_size=256,
+    latent_size=64, bg_latent_size=64, local_latent_size=64,
+    z_bg_beta=1.0, z_what_beta=0.5, patch_size=8, split_z_l=True,
+    concat_z_what=True, dense_local=True, dense_bg=True, fused_render=True)
+
+
+def config5(**overrides) -> SpairConfig:
+    return SpairConfig(**{**CONFIG5, **overrides})

@@ -1,0 +1,48 @@
+"""Where the noise of a stochastic forward comes from.
+
+Every stochastic op of the port takes its noise as a tensor. ``Noise`` hands
+those tensors out in call order: drawn from a ``torch.Generator``, or
+replayed from a list (the tests replay what the JAX package drew).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import torch
+
+
+class Noise:
+    def __init__(self, generator: torch.Generator,
+                 replay: Optional[Iterable[torch.Tensor]] = None):
+        self.generator = generator
+        self.device = generator.device
+        self._replay = None if replay is None else list(replay)
+
+    def _next(self, shape) -> torch.Tensor:
+        if not self._replay:
+            raise ValueError(f"replayed noise ran out at a draw of shape {tuple(shape)}")
+        t = torch.as_tensor(self._replay.pop(0), dtype=torch.float32, device=self.device)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"replayed noise has shape {tuple(t.shape)}, "
+                             f"the draw wants {tuple(shape)}")
+        return t
+
+    def normal(self, shape) -> torch.Tensor:
+        if self._replay is not None:
+            return self._next(shape)
+        return torch.randn(tuple(shape), generator=self.generator, device=self.device)
+
+    def uniform(self, shape) -> torch.Tensor:
+        if self._replay is not None:
+            return self._next(shape)
+        return torch.rand(tuple(shape), generator=self.generator, device=self.device)
+
+    def seed(self) -> torch.Tensor:
+        """An int32 seed in [0, 2^31 - 1), as a one-element tensor on the device
+        (the render kernels read it there, so drawing it needs no sync)."""
+        return torch.randint(0, 2**31 - 1, (1,), generator=self.generator,
+                             device=self.device, dtype=torch.int32)
+
+    def exhausted(self) -> bool:
+        return not self._replay

@@ -1,0 +1,91 @@
+"""Flax parameter trees <-> the port's state_dicts.
+
+The JAX package keeps its parameters as a nested dict named by the flax tree
+(``encoder/obj_encoder/Conv_0/kernel``). The port's modules carry the same
+names, so a leaf maps by path, with two layout rules:
+
+- a conv ``kernel`` is HWIO in flax and a ``weight`` OIHW in torch;
+- a Dense ``kernel`` is [in, out] in flax and a ``weight`` [out, in] in torch.
+
+Both directions take and give plain numpy arrays on the flax side, so nothing
+here needs JAX: a tree read from a checkpoint, or handed over by a test, is
+nested dicts of arrays. A leaf that finds no counterpart, on either side, or
+whose shape disagrees, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path)
+        else:
+            yield path, np.asarray(value)
+
+
+def _to_torch_layout(leaf: np.ndarray, kind: str) -> np.ndarray:
+    if kind != "kernel":
+        return leaf
+    if leaf.ndim == 4:  # HWIO -> OIHW
+        return leaf.transpose(3, 2, 0, 1)
+    if leaf.ndim == 2:  # [in, out] -> [out, in]
+        return leaf.T
+    raise ValueError(f"a kernel of rank {leaf.ndim} has no torch layout")
+
+
+def _to_flax_layout(weight: np.ndarray, kind: str) -> np.ndarray:
+    if kind != "kernel":
+        return weight
+    if weight.ndim == 4:  # OIHW -> HWIO
+        return weight.transpose(2, 3, 1, 0)
+    if weight.ndim == 2:
+        return weight.T
+    raise ValueError(f"a weight of rank {weight.ndim} has no flax layout")
+
+
+def flax_to_state_dict(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The flax tree ``params`` as a state_dict for ``model`` (on its devices)."""
+    target = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params):
+        kind = path[-1]
+        name = ".".join(path[:-1] + ({"kernel": "weight"}.get(kind, kind),))
+        if name not in target:
+            raise KeyError(f"flax leaf {'/'.join(path)} has no counterpart {name!r} in the model")
+        value = _to_torch_layout(leaf, kind)
+        want = target[name]
+        if tuple(value.shape) != tuple(want.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {value.shape} maps to {name} "
+                             f"of shape {tuple(want.shape)}")
+        out[name] = torch.tensor(value, device=want.device, dtype=want.dtype)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"model entries with no flax leaf: {missing}")
+    return out
+
+
+def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
+    """Copies the flax tree ``params`` into ``model``; returns the model."""
+    model.load_state_dict(flax_to_state_dict(params, model), strict=True)
+    return model
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse: a state_dict as a nested flax tree of numpy arrays."""
+    tree: Dict = {}
+    for name, tensor in state_dict.items():
+        *scopes, kind = name.split(".")
+        kind = {"weight": "kernel"}.get(kind, kind)
+        node = tree
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[kind] = _to_flax_layout(tensor.detach().cpu().numpy(), kind)
+    return tree

@@ -1,0 +1,177 @@
+"""LG-SPAIR (SPLIT-SPAIR) and its factory (split_vae_tpu/models/spair.py).
+
+Behavioural contract: spair/spair.py:52-106. ``fused_render=True`` sends the
+training forward through the fused paste+composite render: the CUDA kernel
+pair for tensors on a GPU, its plain version for tensors on the CPU.
+Only the dense background and local paths (``dense_bg``, ``dense_local``),
+which config #5 uses, are ported so far; SPAIR, BG-SPAIR and LGGlimpseSPAIR
+come later.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from split_vae_torch.core.noise import Noise
+from split_vae_torch.nn.common import init_params
+from split_vae_torch.nn.spair_nets import (
+    ImageDecoderDense,
+    ImageEncoderDense,
+    SpairDecoder,
+    SpairEncoder,
+    fused_decode_render,
+    render,
+)
+
+
+class SpairOutput(NamedTuple):
+    """The JAX package's SpairOutput, field for field; absent fields are None."""
+
+    x_recon: torch.Tensor
+    z_what: torch.Tensor
+    z_what_mean: torch.Tensor
+    z_what_sigma: torch.Tensor
+    z_where: torch.Tensor
+    z_where_mean: torch.Tensor
+    z_where_sigma: torch.Tensor
+    z_depth: torch.Tensor
+    z_depth_mean: torch.Tensor
+    z_depth_sigma: torch.Tensor
+    z_pres: torch.Tensor
+    z_pres_logits: torch.Tensor
+    z_pres_pre_sigmoid: torch.Tensor
+    all_glimpses: torch.Tensor
+    obj_recon_unnorm: torch.Tensor
+    obj_recon_alpha: torch.Tensor
+    obj_full_recon_unnorm: Optional[torch.Tensor]
+    obj_bbox_mask: torch.Tensor
+    z_bg: Optional[torch.Tensor] = None
+    z_bg_mean: Optional[torch.Tensor] = None
+    z_bg_sig: Optional[torch.Tensor] = None
+    x_hat_recon: Optional[torch.Tensor] = None
+    z_l: Optional[torch.Tensor] = None
+    z_l_mean: Optional[torch.Tensor] = None
+    z_l_sig: Optional[torch.Tensor] = None
+    x_hat: Optional[torch.Tensor] = None
+
+
+class LGSPAIR(nn.Module):
+    """SPLIT-SPAIR: SPAIR + a local (scrambled-view) path (spair/spair.py:52-106).
+
+    ``render_noise_scale`` is the fused render's noise (the JAX
+    ``fused_decode_render(noise_scale=0.01)``); 0 turns it off, as the JAX
+    package's interpret mode does.
+    """
+
+    def __init__(self, image_hw: Tuple[int, int], object_size: int, latent_size: int,
+                 tau: float, num_channel: int = 3, bg_latent_size: int = 4,
+                 local_latent_size: int = 64, dense_bg: bool = False,
+                 dense_local: bool = False, concat_z_what: bool = False,
+                 concat_backbone: bool = False, concat_z_bg: bool = False,
+                 fused_render: bool = False, render_noise_scale: float = 0.01, device=None):
+        super().__init__()
+        if not (dense_bg and dense_local):
+            raise NotImplementedError("only the dense background and local paths are ported")
+        self.image_hw = tuple(image_hw)
+        self.num_channel = num_channel
+        self.concat_z_what = concat_z_what
+        self.concat_backbone = concat_backbone
+        self.concat_z_bg = concat_z_bg
+        self.fused_render = fused_render
+        self.render_noise_scale = render_noise_scale
+        h, w = image_hw
+        self.encoder = SpairEncoder(image_hw, num_channel, object_size, latent_size, tau,
+                                    concat=concat_backbone,
+                                    local_latent_size=local_latent_size, device=device)
+        what = latent_size + (local_latent_size if concat_z_what else 0)
+        self.decoder = SpairDecoder(image_hw, object_size, num_channel, what, latent_size,
+                                    device)
+        self.bg_encoder = ImageEncoderDense(h * w * num_channel, bg_latent_size, device)
+        bg_in = bg_latent_size + (local_latent_size if concat_z_bg else 0)
+        self.bg_decoder = ImageDecoderDense(bg_in, image_hw, num_channel, device)
+        self.x_hat_encoder = ImageEncoderDense(h * w * num_channel, local_latent_size, device)
+        self.x_hat_decoder = ImageDecoderDense(local_latent_size, image_hw, num_channel, device)
+
+    def forward(self, inputs: torch.Tensor, training: bool, noise: Noise,
+                fused: Optional[bool] = None) -> SpairOutput:
+        if fused is None:
+            fused = self.fused_render
+        c = self.num_channel
+        x, x_hat = inputs[..., :c], inputs[..., c:]
+
+        z_l, z_l_mean, z_l_sig = self.x_hat_encoder(x_hat, noise)
+        z_bg, z_bg_mean, z_bg_sig = self.bg_encoder(x, noise)
+
+        (z_what, z_what_mean, z_what_sigma, z_where, z_where_mean, z_where_sigma,
+         z_depth, z_depth_mean, z_depth_sigma, z_pres, z_pres_logits,
+         z_pres_pre_sigmoid, all_glimpses) = self.encoder(
+            x, noise, z_l if self.concat_backbone else None)
+
+        x_hat_recon = self.x_hat_decoder(z_l)
+        z_bg_in = torch.cat([z_bg, z_l], dim=-1) if self.concat_z_bg else z_bg
+        bg_recon = self.bg_decoder(z_bg_in)
+
+        if self.concat_z_what:
+            b, gh, gw = z_what.shape[:3]
+            tiled = z_l[:, None, None, :].expand(b, gh, gw, z_l.shape[-1])
+            z_what = torch.cat([z_what, tiled], dim=-1)
+
+        if training and fused:
+            obj_recon_unnorm, obj_recon_alpha, obj_bbox, x_recon = fused_decode_render(
+                self.decoder, noise, z_what, z_where, z_depth, z_pres, bg_recon, c,
+                self.image_hw, self.render_noise_scale)
+            obj_full = None
+        else:
+            obj_recon_unnorm, obj_recon_alpha, obj_full, obj_bbox = self.decoder(z_what, z_where)
+            eps = noise.normal(obj_full.shape[:-1] + (c,)) if training else None
+            x_recon = render(obj_full, bg_recon, z_depth, z_pres, z_pres_logits, training, c,
+                             eps)
+        return SpairOutput(
+            x_recon, z_what, z_what_mean, z_what_sigma, z_where, z_where_mean,
+            z_where_sigma, z_depth, z_depth_mean, z_depth_sigma, z_pres,
+            z_pres_logits, z_pres_pre_sigmoid, all_glimpses, obj_recon_unnorm,
+            obj_recon_alpha, obj_full, obj_bbox, z_bg, z_bg_mean, z_bg_sig,
+            x_hat_recon, z_l, z_l_mean, z_l_sig)
+
+
+def require_device(device) -> torch.device:
+    """The device asked for; raises for a CUDA device when CUDA is absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def get_spair_model(config, device="cuda",
+                    generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Model factory on config.model (spair/spair.py:8-17); only ``lg_spair`` so far.
+
+    Weights are glorot-uniform from ``generator`` (a generator seeded with
+    config.seed on the model's device if None).
+    """
+    device = require_device(device)
+    if config.model != "lg_spair":
+        raise NotImplementedError(f"model {config.model!r} is not ported yet")
+    model = LGSPAIR(
+        image_hw=(config.image_size[0], config.image_size[1]),
+        object_size=config.object_size,
+        latent_size=config.latent_size,
+        tau=config.tau,
+        num_channel=config.image_size[2],
+        bg_latent_size=config.bg_latent_size,
+        local_latent_size=config.local_latent_size,
+        dense_bg=config.dense_bg,
+        dense_local=config.dense_local,
+        concat_z_what=config.concat_z_what,
+        concat_backbone=config.concat_backbone,
+        concat_z_bg=config.concat_z_bg,
+        fused_render=config.fused_render,
+        device=device,
+    )
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(config.seed)
+    init_params(model, generator)
+    return model

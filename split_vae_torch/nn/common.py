@@ -1,0 +1,78 @@
+"""Layers with the JAX package's conventions (split_vae_tpu/nn/common.py).
+
+- Tensors are NHWC at every public function; a convolution permutes to NCHW
+  (a channels-last view, no copy) inside.
+- Weights are glorot-uniform and biases zero, as Keras and the JAX package
+  set them; ``init_params`` draws them from an explicit generator.
+- ``Conv`` pads as TF/flax ``SAME`` does: total padding
+  max((ceil(n/s) - 1)*s + k - n, 0), the odd pixel on the high side. Torch's
+  symmetric ``padding=`` differs whenever that total is odd.
+- fp32 only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+    """(low, high) padding of TF/flax SAME for size n, kernel k, stride s."""
+    total = max((math.ceil(n / s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class Dense(nn.Module):
+    """flax Dense: y = x @ W^T + b, W stored [out, in] (flax keeps [in, out])."""
+
+    def __init__(self, in_features: int, out_features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class Conv(nn.Module):
+    """flax Conv on NHWC tensors, weight OIHW (flax keeps HWIO)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: Tuple[int, int],
+                 stride: int = 1, padding: str = "SAME", device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel_size, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xn = x.permute(0, 3, 1, 2)
+        pad = 0
+        if self.padding == "SAME":
+            kh, kw = self.weight.shape[2:]
+            (t, b), (l, r) = (same_pads(xn.shape[2], kh, self.stride),
+                              same_pads(xn.shape[3], kw, self.stride))
+            if (t, l) == (b, r):
+                pad = (t, l)
+            else:
+                xn = F.pad(xn, (l, r, t, b))
+        y = F.conv2d(xn, self.weight, self.bias, stride=self.stride, padding=pad)
+        return y.permute(0, 2, 3, 1)
+
+
+def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Glorot-uniform weights and zero biases for every Dense and Conv in module."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Dense, Conv)):
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+                m.bias.zero_()
+
+
+def flatten(x: torch.Tensor) -> torch.Tensor:
+    """[B, ...] -> [B, -1] in the tensor's logical (NHWC) order."""
+    return x.reshape(x.shape[0], -1)

@@ -1,0 +1,29 @@
+"""Resize2xConv (split_vae_tpu/nn/pixel_shuffle.py): bilinear 2x resize, then a 3x3 SAME conv.
+
+The JAX package folds the resize into the conv's phase kernels to keep the
+upsampled tensor out of TPU memory; the two are the same map. The port
+computes the chain as it reads: ``F.interpolate`` with half-pixel centers
+(``align_corners=False``, equal to ``jax.image.resize(..., "bilinear")`` when
+upsampling), then the conv. The parameters are the conv's (flax ``kernel``
+and ``bias``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from split_vae_torch.nn.common import Conv
+
+
+class Resize2xConv(Conv):
+    def __init__(self, in_ch: int, out_ch: int, out_hw: Tuple[int, int], device=None):
+        super().__init__(in_ch, out_ch, (3, 3), padding="SAME", device=device)
+        self.out_hw = tuple(out_hw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        up = F.interpolate(x.permute(0, 3, 1, 2), size=self.out_hw, mode="bilinear",
+                           align_corners=False)
+        return super().forward(up.permute(0, 2, 3, 1))

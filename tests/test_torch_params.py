@@ -1,0 +1,127 @@
+"""Parameter conversion (split_vae_torch.interop.flax_params) and the port's
+independence from JAX.
+
+Every leaf of an LG-SPAIR flax tree converts into the port's state_dict and
+back unchanged; a leaf with no counterpart on either side raises; and no
+module of the port, nor chip_smoke.py, imports jax, flax, optax or the JAX
+package.
+"""
+
+import ast
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from split_vae_torch.core.config import config5  # noqa: E402
+from split_vae_torch.interop.flax_params import (  # noqa: E402
+    flax_to_state_dict,
+    load_flax_params,
+    state_dict_to_flax,
+)
+from split_vae_torch.models.spair import get_spair_model as torch_model  # noqa: E402
+from split_vae_tpu.core.config import SpairConfig  # noqa: E402
+from split_vae_tpu.models.spair import get_spair_model as jax_model  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(batch_size=2, latent_size=8, bg_latent_size=8, local_latent_size=8,
+             object_size=16)
+
+
+def _flax_params():
+    cfg = SpairConfig(**{**config5().__dict__, **SMALL})
+    cfg.image_size = (24, 24, 3)
+    variables = jax_model(cfg).init(
+        {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)},
+        jnp.zeros((2, 24, 24, 6)), training=True)
+    params = jax.tree.map(np.asarray, variables["params"])
+    port_cfg = config5(**SMALL)
+    port_cfg.image_size = (24, 24, 3)
+    return params, torch_model(port_cfg, device="cpu")
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def test_every_leaf_converts_and_round_trips():
+    params, model = _flax_params()
+    load_flax_params(model, params)
+    sd = model.state_dict()
+    # Layouts: a conv kernel HWIO -> OIHW, a Dense kernel [in, out] -> [out, in].
+    np.testing.assert_array_equal(sd["encoder.conv1.weight"].numpy(),
+                                  params["encoder"]["conv1"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["encoder.where_d1.weight"].numpy(),
+                                  params["encoder"]["where_d1"]["kernel"].T)
+    back = dict(_flat(state_dict_to_flax(sd)))
+    want = dict(_flat(params))
+    assert sorted(back) == sorted(want)
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(back[path], leaf, err_msg="/".join(path))
+
+
+def test_unmapped_leaves_raise():
+    params, model = _flax_params()
+    extra = {**params, "stray": {"Dense_9": {"kernel": np.zeros((2, 2), np.float32)}}}
+    with pytest.raises(KeyError, match="stray"):
+        flax_to_state_dict(extra, model)
+    short = {k: v for k, v in params.items() if k != "bg_decoder"}
+    with pytest.raises(KeyError, match="bg_decoder"):
+        flax_to_state_dict(short, model)
+    wrong = jax.tree.map(lambda a: a, params)
+    wrong["encoder"]["z3"]["bias"] = np.zeros((7,), np.float32)
+    with pytest.raises(ValueError, match="z3"):
+        flax_to_state_dict(wrong, model)
+
+
+def test_port_init_matches_flax_scheme():
+    """Glorot-uniform weights and zero biases, as the JAX package draws them."""
+    params, model = _flax_params()
+    for name, t in model.state_dict().items():
+        if name.endswith("bias"):
+            assert torch.count_nonzero(t) == 0, name
+        else:
+            fan_in = t.shape[1] * t[0, 0].numel()
+            fan_out = t.shape[0] * t[0, 0].numel()
+            limit = np.sqrt(6.0 / (fan_in + fan_out))
+            assert t.abs().max() <= limit and t.abs().max() > 0.5 * limit, name
+
+
+def test_entry_point_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_model(config5(**SMALL))
+
+
+def _sources():
+    for root, _, files in os.walk(os.path.join(REPO, "split_vae_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("banned", ["jax", "flax", "optax", "split_vae_tpu"])
+def test_port_imports_no_jax(banned):
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] != banned, f"{path} imports {name}"
