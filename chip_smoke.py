@@ -2,23 +2,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the LG-SPAIR train step at BASELINE config #5
-(Multi-Bird-Hard: B=256, 48-px canvases, 4x4 cells, 32-px objects, full
-widths, random weights from a seed), through the hand-written CUDA render
-kernels. Phases, each of which must pass:
+Drives the port's main paths, SPAIR-family train steps at full width (B=256,
+48-px canvases, 4x4 cells, random weights from a seed), through the
+hand-written CUDA kernels: the fused paste+composite render and the STN
+glimpse crop. The paths:
+
+  P1  LG-SPAIR at BASELINE config #5 (Multi-Bird-Hard: 32-px objects, dense
+      background and local paths);
+  P2  BG-SPAIR at the SpairConfig defaults (32-px objects);
+  P3  LGGlimpseSPAIR with 28-px objects in 4-px patches, the shapes that are
+      not multiples of 8.
+
+Phases, each of which must pass:
 
   1. the card's name and power limit, from nvidia-smi;
-  2. build the kernels from split_vae_torch/csrc (nvcc, sm_90a), timed;
-  3. each kernel against its plain PyTorch version on the card (TF32 off), at
-     the config-#5 shapes and at an unaligned shape (30-px objects on 45-px
-     canvases), with render noise 0 and 0.01: the forward at atol 3e-5, all
-     six gradients at rtol 1e-3, atol 2e-4 (the TPU tests' tolerances);
-  4. kernel and plain times at config #5 (median of CUDA-event timings);
-  5. one small train step on the card against the same step on the CPU
-     (plain render), then the main path: config-#5 train steps with the
-     kernels' launch counts set to 0 before and read after, and a profile of
-     three more steps (device time by kernel family, the device's idle share);
-  6. one JSON line per run of kernels, then the card, then {"ok": true, ...}.
+  2. build the kernels from split_vae_torch/csrc (one nvcc a source, side by
+     side, sm_90a), timed;
+  3. each kernel against its plain PyTorch version on the card (TF32 off).
+     Render: at the config-#5 shapes and at an unaligned shape (30-px objects
+     on 45-px canvases), with render noise 0 and 0.01. Crop: at 48 -> 32 px
+     and 48 -> 28 px (B=256), with 6 channels, and at a ragged shape (9 cells,
+     45 -> 30 px); all three gradients, and the two the model's path asks for.
+     Forward atol 3e-5, gradients rtol 1e-3, atol 2e-4: the limits the JAX
+     package's tests hold its Pallas kernels to (fp32 sums in another order);
+  4. kernel, plain and, for the crop, library times (the one-call einsum) at
+     the shapes of P1/P2 and of P3 (median of CUDA-event timings), and bounds;
+  5. one small train step on the card against the same step on the CPU (plain
+     kernels' versions) for LG-SPAIR, BG-SPAIR and LGGlimpseSPAIR, then each
+     main path: train steps with the kernels' launch counts set to 0 before
+     and read after, a profile of three more steps (device time by kernel
+     family, the device's idle share), and one eval step with labels;
+  6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
 beside it.
@@ -41,7 +55,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 FWD_ATOL = 3e-5
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-4
-TRAIN_STEPS, WARMUP_STEPS = 8, 2
+TRAIN_STEPS, WARMUP_STEPS = 6, 2
 
 
 def fail(msg: str) -> None:
@@ -168,11 +182,102 @@ def time_render(torch, render, shape, noise_scale):
     }
 
 
+def crop_inputs(torch, b, grid, canvas, glimpse, c, seed):
+    """Crop inputs on the card: a random image, weights from random boxes, a cotangent."""
+    from split_vae_torch.ops.stn import crop_interp_weights
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand((b, canvas, canvas, c), generator=g, device="cuda")
+    z_where = torch.randn((b, grid, grid, 4), generator=g, device="cuda")
+    wy, wx, _ = crop_interp_weights(z_where, (canvas, canvas), (glimpse, glimpse))
+    cot = torch.randn((b, grid * grid, glimpse, glimpse, c), generator=g, device="cuda")
+    return img, wy.contiguous(), wx.contiguous(), cot
+
+
+def compare_crop(torch, crop, shape, seed):
+    """Crop kernels vs plain: forward, all three gradients, and the backward
+    without g_img (the model's path); returns (fwd err, bwd err)."""
+    img, wy, wx, cot = crop_inputs(torch, *shape, seed)
+    ins_k = [a.clone().requires_grad_(True) for a in (img, wy, wx)]
+    ins_p = [a.clone().requires_grad_(True) for a in (img, wy, wx)]
+    out_k = crop.stn_crop_apply(*ins_k)
+    out_p = crop.crop_reference(*ins_p)
+    g_k = torch.autograd.grad(out_k, ins_k, cot)
+    g_p = torch.autograd.grad(out_p, ins_p, cot)
+    g_k2 = torch.autograd.grad(crop.stn_crop_apply(img, *ins_k[1:]), ins_k[1:], cot)
+    torch.cuda.synchronize()
+    fwd_err = (out_k - out_p).abs().max().item()
+    if not fwd_err <= FWD_ATOL:
+        fail(f"crop forward {shape}: max |kernel - plain| {fwd_err:.3g} > {FWD_ATOL}")
+    bwd_err = 0.0
+    for name, a, p in zip(("img", "wy", "wx", "wy (no g_img)", "wx (no g_img)"),
+                          g_k + g_k2, g_p + g_p[1:]):
+        err = (a - p).abs()
+        if not (err - (GRAD_ATOL + GRAD_RTOL * p.abs())).max().item() <= 0:
+            fail(f"crop backward {shape}: d{name} max err {err.max().item():.3g} "
+                 f"beyond rtol {GRAD_RTOL}, atol {GRAD_ATOL}")
+        bwd_err = max(bwd_err, err.max().item())
+    log(f"  crop {shape}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}")
+    return fwd_err, bwd_err
+
+
+def crop_bounds(shape):
+    """Least times (ms) for the crop's forward, its backward without g_img (as
+    the model's path calls it) and its backward with all three gradients.
+
+    Bytes: each input read once, each output written once (fp32). Operations:
+    the dense products, 2 FLOP per multiply-add: wy.img and (wy.img).wx^T
+    forward; g.wx, its product with img (g_wy), wy.img and g^T.(wy.img) (g_wx)
+    backward, and wy^T.(g.wx) where g_img is asked for.
+    """
+    b, grid, hh, ho, c = shape
+    cells, ww, wo = b * grid * grid, hh, ho
+    img, wts, out = 4 * b * hh * ww * c, 4 * cells * (ho * hh + wo * ww), 4 * cells * ho * wo * c
+    fwd_fma = cells * c * (ho * hh * ww + ho * wo * ww)
+    bwd_fma = cells * c * (ho * wo * ww + 2 * ho * hh * ww + wo * ww * ho)
+    res = {}
+    for name, nbytes, fma in (("fwd", img + wts + out, fwd_fma),
+                              ("bwd", img + 2 * wts + out, bwd_fma),
+                              ("bwd_all", 2 * img + 2 * wts + out,
+                               bwd_fma + cells * c * hh * ww * ho)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * fma / PEAK_FP32 * 1e3
+        res[name] = (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+                     nbytes, 2 * fma)
+    return res
+
+
+def time_crop(torch, crop, shape):
+    """Kernel, plain and library (one three-operand einsum and its autograd
+    backward) times; "bwd" gives the gradients of wy and wx, "bwd_all" all three."""
+    img, wy, wx, cot = crop_inputs(torch, *shape, 13)
+
+    def library(*ins):
+        return torch.einsum("bkpi,bijc,bkqj->bkpqc", ins[1], ins[0], ins[2])
+
+    ins = [a.clone().requires_grad_(True) for a in (img, wy, wx)]
+    out_lib = library(*ins)
+    return {
+        "fwd": cuda_ms(lambda: crop._fwd(img, wy, wx)),
+        "bwd": cuda_ms(lambda: crop._bwd(img, wy, wx, cot, need_img=False)),
+        "bwd_all": cuda_ms(lambda: crop._bwd(img, wy, wx, cot)),
+        "plain_fwd": cuda_ms(lambda: crop.crop_reference(img, wy, wx)),
+        "plain_bwd": cuda_ms(lambda: crop.crop_backward_reference(img, wy, wx, cot, False)),
+        "plain_bwd_all": cuda_ms(lambda: crop.crop_backward_reference(img, wy, wx, cot)),
+        "library_fwd": cuda_ms(lambda: library(img, wy, wx)),
+        "library_bwd": cuda_ms(lambda: torch.autograd.grad(out_lib, ins[1:], cot,
+                                                           retain_graph=True)),
+        "library_bwd_all": cuda_ms(lambda: torch.autograd.grad(out_lib, ins, cot,
+                                                               retain_graph=True)),
+    }
+
+
 def kernel_family(name: str) -> str:
     """A coarse family for a CUDA kernel's name, for the step's breakdown."""
     low = name.lower()
     if "render_" in low:
         return "render kernels (this port)"
+    if "crop_" in low:
+        return "crop kernels (this port)"
     if any(s in low for s in ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
                               "winograd", "fft")):
         return "convolutions (cuDNN)"
@@ -229,12 +334,16 @@ class RecordingNoise:
         self.drawn.append(self.noise.uniform(shape))
         return self.drawn[-1]
 
+    def permutation(self, n):
+        self.drawn.append(self.noise.permutation(n))
+        return self.drawn[-1]
+
     def seed(self):
         return self.noise.seed()
 
 
-def small_step_check(torch, np):
-    """One small train step on the card (kernels) against the CPU (plain render).
+def small_step_check(torch, np, cfg, label):
+    """One small train step on the card (kernels) against the CPU (plain versions).
 
     Held: the clipped gradients tensor by tensor (rtol 1e-3, atol 1e-6 max|g|),
     the step's metrics (rtol 1e-4), and the parameters after Adam (atol 1e-5)
@@ -244,35 +353,31 @@ def small_step_check(torch, np):
     CPU's, and not the same order from run to run) into update differences of
     up to lr, so there only the gradient is held.
     """
-    from split_vae_torch.core.config import config5
     from split_vae_torch.core.noise import Noise
     from split_vae_torch.core.state import create_train_state
     from split_vae_torch.models.spair import get_spair_model
-    from split_vae_torch.ops.patches import augment_batch, scramble_shape
     from split_vae_torch.train.losses import spair_loss
     from split_vae_torch.train.optim import clip_by_per_tensor_norm, spair_optimizer
-    from split_vae_torch.train.steps import make_spair_train_step
+    from split_vae_torch.train.steps import make_spair_train_step, model_inputs
 
-    cfg = config5(batch_size=4, latent_size=8, bg_latent_size=8, local_latent_size=8,
-                  object_size=16)
-    cfg.image_size = (24, 24, 3)
-    x = torch.from_numpy(np.random.RandomState(1).uniform(0, 1, (4, 24, 24, 3)).astype(np.float32))
+    hw = cfg.image_size[0]
+    x = torch.from_numpy(np.random.RandomState(1).uniform(0, 1, (cfg.batch_size, hw, hw, 3))
+                         .astype(np.float32))
     cpu = get_spair_model(cfg, device="cpu")
     gpu = get_spair_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     for m in (cpu, gpu):
         m.render_noise_scale = 0.0
-    gen = torch.Generator().manual_seed(2)
-    u = torch.rand(scramble_shape(x.shape, cfg.patch_size), generator=gen)
-    rec = RecordingNoise(Noise(gen))
+    rec = RecordingNoise(Noise(torch.Generator().manual_seed(2)))
     with torch.no_grad():
-        cpu(augment_batch(x, "scramble", cfg.patch_size, u=u), True, rec)
-    replay = [u] + rec.drawn
+        cpu(model_inputs(cfg, x, rec), True, rec)
+    replay = rec.drawn  # the scramble's uniforms first where there are any
 
     grads = []
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
-        images = augment_batch(x.to(dev), "scramble", cfg.patch_size, u=u.to(dev))
-        out = model(images, True, Noise(torch.Generator(device=dev), rec.drawn))
+        noise = Noise(torch.Generator(device=dev), replay)
+        images = model_inputs(cfg, x.to(dev), noise)
+        out = model(images, True, noise)
         total, _ = spair_loss(out, images, cfg, 0, training=True)
         g = torch.autograd.grad(total, list(model.parameters()))
         grads.append([t.cpu() for t in clip_by_per_tensor_norm(1.0).update(list(g), ())[0]])
@@ -281,98 +386,51 @@ def small_step_check(torch, np):
     for name, gc, gg in zip(names, *grads):
         excess = ((gg - gc).abs() - (1e-3 * gc.abs() + 1e-6 * gc.abs().max())).max().item()
         if not excess <= 0:
-            fail(f"small step: gradient of {name} differs by {(gg - gc).abs().max().item():.3g}"
-                 f" (max |g| {gc.abs().max().item():.3g})")
+            fail(f"small step {label}: gradient of {name} differs by "
+                 f"{(gg - gc).abs().max().item():.3g} (max |g| {gc.abs().max().item():.3g})")
         worst_g = max(worst_g, ((gg - gc).abs().max() / gc.abs().max()).item())
 
     results = []
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
         state = create_train_state(model, spair_optimizer(cfg.learning_rate), seed=0)
-        state, metrics = make_spair_train_step(cfg)(state, x.to(dev),
-                                                    [t.to(dev) for t in replay])
+        state, metrics = make_spair_train_step(cfg)(state, x.to(dev), replay)
         results.append(({k: float(v) for k, v in metrics.items()},
                         [p.detach().cpu() for p in model.parameters()]))
     (m_cpu, p_cpu), (m_gpu, p_gpu) = results
     for k in m_cpu:
         if not abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * abs(m_cpu[k]) + 1e-6:
-            fail(f"small step: metric {k} card {m_gpu[k]} vs CPU {m_cpu[k]}")
+            fail(f"small step {label}: metric {k} card {m_gpu[k]} vs CPU {m_cpu[k]}")
     worst = 0.0
     for name, pc, pg, gc in zip(names, p_cpu, p_gpu, grads[0]):
         diff = torch.where(gc.abs() >= 1e-5, (pg - pc).abs(), torch.zeros_like(pc))
         worst = max(worst, diff.max().item())
         if not worst <= 1e-5:
-            fail(f"small step: {name} after Adam differs by {worst:.3g} > 1e-5")
-    log(f"  small step (B=4, 24 px): clipped gradients within {worst_g:.3g} max|g|, metrics "
-        f"within rtol 1e-4 of the CPU step, params after Adam within {worst:.3g}")
+            fail(f"small step {label}: {name} after Adam differs by {worst:.3g} > 1e-5")
+    log(f"  small step {label} (B={cfg.batch_size}, {hw} px, {cfg.object_size}-px objects): "
+        f"clipped gradients within {worst_g:.3g} max|g|, metrics within rtol 1e-4 of the CPU "
+        f"step, params after Adam within {worst:.3g}")
 
 
-def main() -> None:
-    if not os.path.isdir(os.path.join(HERE, "split_vae_torch")):
-        fail("split_vae_torch/ is not beside chip_smoke.py")
-    sys.path.insert(0, HERE)
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
-    from split_vae_torch.core.config import config5
+def run_path(torch, np, name, cfg, render, crop):
+    """A main path at full width: train steps through the kernels with the
+    launch counts set to 0 before and read after, a profile, one eval step.
+    Returns the four launch counts of the train steps."""
     from split_vae_torch.core.state import create_train_state
-    from split_vae_torch.kernels import render
     from split_vae_torch.models.spair import get_spair_model
     from split_vae_torch.train.optim import spair_optimizer
-    from split_vae_torch.train.steps import make_spair_train_step, use_fp32
+    from split_vae_torch.train.steps import make_spair_eval_step, make_spair_train_step
 
-    # Phase 1: the card.
-    card = card_line()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    use_fp32()
-
-    # Phase 2: build.
-    t0 = time.perf_counter()
-    lib = render.build()
-    log(f"build: nvcc sm_90a in {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, HERE)}")
-    with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
-
-    # Phase 3: kernels against the plain version.
-    cfg5_shape = (256, 4, 32, 48, 3)  # B, grid, object size, canvas, colour channels
-    log("kernel vs plain (fp32, TF32 off):")
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    for i, (shape, noise) in enumerate(((cfg5_shape, 0.0), (cfg5_shape, 0.01),
-                                        ((8, 4, 30, 45, 3), 0.0), ((8, 4, 30, 45, 3), 0.01))):
-        fe, be = compare_kernels(torch, render, shape, noise, seed=i + 1)
-        errs["fwd"], errs["bwd"] = max(errs["fwd"], fe), max(errs["bwd"], be)
-    # The CPU path draws the same noise field with a numpy twin of the kernels'
-    # Philox; the two agree up to the float32 math libraries (log, cos, sqrt).
-    seed_t = torch.tensor([12345], dtype=torch.int32, device="cuda")
-    noise_err = (render.render_noise(seed_t, 2, 16, 3, 45, 45).cpu()
-                 - render.render_noise(seed_t.cpu(), 2, 16, 3, 45, 45)).abs().max().item()
-    if not noise_err <= 1e-5:
-        fail(f"render noise: card field vs the CPU's numpy twin, max err {noise_err:.3g} > 1e-5")
-    log(f"  render noise: card field vs the CPU's numpy twin, max err {noise_err:.3g}")
-
-    # Phase 4: times at config #5, with the main path's noise 0.01.
-    times = time_render(torch, render, cfg5_shape, 0.01)
-    bound = bounds(cfg5_shape)
-    for name in ("fwd", "bwd"):
-        t, by, nbytes, flops = bound[name]
-        log(f"render {name}: kernel {times[name]:.4f} ms, plain {times['plain_' + name]:.4f} ms, "
-            f"bound {t:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-
-    # Phase 5: a small step against the CPU, then the main path.
-    small_step_check(torch, np)
-    cfg = config5()
+    what = f"{name} ({cfg.model}, {cfg.object_size}-px objects)"
     model = get_spair_model(cfg, device="cuda")
     state = create_train_state(model, spair_optimizer(cfg.learning_rate), seed=cfg.seed)
     train_step = make_spair_train_step(cfg)
     rng = np.random.RandomState(0)
-    batches = [torch.from_numpy(rng.uniform(0, 1, (cfg.batch_size, 48, 48, 3))
+    batches = [torch.from_numpy(rng.uniform(0, 1, (cfg.batch_size,) + tuple(cfg.image_size))
                                 .astype(np.float32)).cuda() for _ in range(2)]
     n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    render.fwd_launches = render.bwd_launches = 0
+    render.fwd_launches = render.bwd_launches = crop.fwd_launches = crop.bwd_launches = 0
     losses = []
     for i in range(WARMUP_STEPS):
         state, metrics = train_step(state, batches[i % 2])
@@ -384,44 +442,173 @@ def main() -> None:
         losses.append(metrics["total_loss"])
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_STEPS
-    launches = {"fwd": render.fwd_launches, "bwd": render.bwd_launches}
+    launches = {"render_fwd": render.fwd_launches, "render_bwd": render.bwd_launches,
+                "crop_fwd": crop.fwd_launches, "crop_bwd": crop.bwd_launches}
     steps = WARMUP_STEPS + TRAIN_STEPS
     losses = [v.item() for v in losses]
-    log(f"train: LG-SPAIR config #5, B={cfg.batch_size}, {n_params} params, {steps} steps; "
-        f"losses {losses[0]:.2f} -> {losses[-1]:.2f}; notfinite_updates "
-        f"{int(metrics['notfinite_updates'].item())}")
-    log(f"train: step {step_s * 1e3:.3f} ms, {cfg.batch_size / step_s:.1f} imgs/s "
+    notfinite = int(metrics["notfinite_updates"].item())
+    log(f"{what}: B={cfg.batch_size}, {n_params} params, {steps} steps; losses "
+        f"{losses[0]:.2f} -> {losses[-1]:.2f}; notfinite_updates {notfinite}")
+    log(f"{name}: step {step_s * 1e3:.3f} ms, {cfg.batch_size / step_s:.1f} imgs/s "
         f"(mean of {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up)")
     if not all(np.isfinite(losses)):
-        fail(f"train: non-finite loss {losses}")
-    for name, n in launches.items():
+        fail(f"{name}: non-finite loss {losses}")
+    if notfinite != 0:
+        fail(f"{name}: {notfinite} updates were skipped as non-finite")
+    for kernel, n in launches.items():
         if n < steps:
-            fail(f"train: render {name} kernel launched {n} times in {steps} steps")
-    log(f"train: render kernel launches fwd {launches['fwd']}, bwd {launches['bwd']}; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            fail(f"{name}: {kernel} kernel launched {n} times in {steps} steps")
+    log(f"{name}: launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # Where the step's time goes (after the counts were read).
     n_prof = 3
     state, wall, busy, families = profile_steps(torch, train_step, state, batches[0], n_prof)
     if busy > 0:
-        log(f"profile: {n_prof} steps under torch.profiler, {wall / n_prof * 1e3:.3f} ms a step "
-            f"on the host clock; device busy {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
+        log(f"{name} profile: {n_prof} steps under torch.profiler, {wall / n_prof * 1e3:.3f} ms "
+            f"a step on the host clock; device busy {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
         for fam, (t, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
             log(f"  {fam}: {t / n_prof * 1e3:.3f} ms a step, {n // n_prof} launches a step")
     else:
-        log("profile: the profiler recorded no device time")
+        log(f"{name} profile: the profiler recorded no device time")
+
+    # One eval step with labels (random counts: the weights are random too).
+    labels = torch.from_numpy(rng.randint(0, 7, cfg.batch_size).astype(np.float32)).cuda()
+    out, ev, _ = make_spair_eval_step(cfg, model)(state.generator, batches[1], labels)
+    torch.cuda.synchronize()
+    ev = {k: v.item() for k, v in ev.items()}
+    if not all(np.isfinite(list(ev.values()))) or not torch.isfinite(out.x_recon).all():
+        fail(f"{name}: non-finite eval result {ev}")
+    if tuple(out.x_recon.shape) != (cfg.batch_size,) + tuple(cfg.image_size):
+        fail(f"{name}: eval x_recon has shape {tuple(out.x_recon.shape)}")
+    log(f"{name} eval: total_loss {ev['total_loss']:.2f}, count_acc {ev['count_acc']:.4f}, "
+        f"MAE test {ev['MAE test']:.4f}, MAPE_nonzero test {ev['MAPE_nonzero test']:.2f}, "
+        f"MAPE test {ev['MAPE test']:.4g}")
+    return launches
+
+
+def main() -> None:
+    if not os.path.isdir(os.path.join(HERE, "split_vae_torch")):
+        fail("split_vae_torch/ is not beside chip_smoke.py")
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from split_vae_torch.core.config import (
+        SpairConfig,
+        config5,
+        config_bg_spair,
+        config_glimpse_spair,
+    )
+    from split_vae_torch.kernels import build, crop, render
+    from split_vae_torch.train.steps import use_fp32
+
+    # Phase 1: the card.
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_fp32()
+
+    # Phase 2: build, one compiler a source.
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"build: nvcc sm_90a in {time.perf_counter() - t0:.1f} s -> "
+        + ", ".join(os.path.relpath(lib, HERE) for lib in libs.values()))
+    for lib in libs.values():
+        with open(lib[:-3] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas: {line.strip()}")
+
+    # Phase 3: kernels against their plain versions.
+    # Render shapes: B, grid, object size, canvas, colour channels.
+    cfg5_shape, p3_shape = (256, 4, 32, 48, 3), (256, 4, 28, 48, 3)
+    log("kernel vs plain (fp32, TF32 off):")
+    errs = {"render_fwd": 0.0, "render_bwd": 0.0, "crop_fwd": 0.0, "crop_bwd": 0.0}
+    for i, (shape, noise) in enumerate(((cfg5_shape, 0.0), (cfg5_shape, 0.01),
+                                        ((8, 4, 30, 45, 3), 0.0), ((8, 4, 30, 45, 3), 0.01),
+                                        (p3_shape, 0.01))):
+        fe, be = compare_kernels(torch, render, shape, noise, seed=i + 1)
+        errs["render_fwd"] = max(errs["render_fwd"], fe)
+        errs["render_bwd"] = max(errs["render_bwd"], be)
+    # The CPU path draws the same noise field with a numpy twin of the kernels'
+    # Philox; the two agree up to the float32 math libraries (log, cos, sqrt).
+    seed_t = torch.tensor([12345], dtype=torch.int32, device="cuda")
+    noise_err = (render.render_noise(seed_t, 2, 16, 3, 45, 45).cpu()
+                 - render.render_noise(seed_t.cpu(), 2, 16, 3, 45, 45)).abs().max().item()
+    if not noise_err <= 1e-5:
+        fail(f"render noise: card field vs the CPU's numpy twin, max err {noise_err:.3g} > 1e-5")
+    log(f"  render noise: card field vs the CPU's numpy twin, max err {noise_err:.3g}")
+    # Crop shapes: B, grid, canvas, glimpse size, channels.
+    crop_p1, crop_p3 = (256, 4, 48, 32, 3), (256, 4, 48, 28, 3)
+    for i, shape in enumerate((crop_p1, crop_p3, (8, 4, 48, 32, 6), (8, 3, 45, 30, 3))):
+        fe, be = compare_crop(torch, crop, shape, seed=i + 1)
+        errs["crop_fwd"] = max(errs["crop_fwd"], fe)
+        errs["crop_bwd"] = max(errs["crop_bwd"], be)
+
+    # Phase 4: times, with the main paths' render noise 0.01.
+    times, bound = {}, {}
+    for label, shape in (("P1/P2", cfg5_shape), ("P3", p3_shape)):
+        t, bd = time_render(torch, render, shape, 0.01), bounds(shape)
+        for name in ("fwd", "bwd"):
+            tb, by, nbytes, flops = bd[name]
+            log(f"render {name} at {label} {shape}: kernel {t[name]:.4f} ms, plain "
+                f"{t['plain_' + name]:.4f} ms, bound {tb:.4f} ms by {by} "
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        if label == "P1/P2":
+            for name in ("fwd", "bwd"):
+                times["render_" + name] = (t[name], t["plain_" + name], None)
+                bound["render_" + name] = bd[name]
+    for label, shape in (("P1/P2", crop_p1), ("P3", crop_p3)):
+        t, bd = time_crop(torch, crop, shape), crop_bounds(shape)
+        for name in ("fwd", "bwd", "bwd_all"):
+            tb, by, nbytes, flops = bd[name]
+            log(f"crop {name} at {label} {shape}: kernel {t[name]:.4f} ms, plain "
+                f"{t['plain_' + name]:.4f} ms, library {t['library_' + name]:.4f} ms, bound "
+                f"{tb:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        if label == "P1/P2":
+            for name in ("fwd", "bwd"):  # "bwd": without g_img, as the paths call it
+                times["crop_" + name] = (t[name], t["plain_" + name], t["library_" + name])
+                bound["crop_" + name] = bd[name]
+
+    # Phase 5: small steps against the CPU, then the main paths.
+    small = dict(batch_size=4, latent_size=8, bg_latent_size=8, local_latent_size=8,
+                 image_size=(24, 24, 3))
+    small_step_check(torch, np, config5(**small, object_size=16), "LG-SPAIR")
+    small_step_check(torch, np, SpairConfig(**small, model="bg_spair", object_size=16),
+                     "BG-SPAIR")
+    small_step_check(torch, np, SpairConfig(**small, model="lg_glimpse_spair", object_size=12,
+                                            patch_size=4), "LGGlimpseSPAIR")
+    launches = {}
+    for name, cfg in (("P1", config5()), ("P2", config_bg_spair()),
+                      ("P3", config_glimpse_spair())):
+        launches[name] = run_path(torch, np, name, cfg, render, crop)
+        torch.cuda.empty_cache()
 
     # Phase 6: the record.
+    sources = {"render": "split_vae_torch/csrc/render.cu", "crop": "split_vae_torch/csrc/crop.cu"}
+    replaces = {
+        "render_fwd": "split_vae_tpu/ops/pallas/render_packed.py:87; "
+                      "split_vae_tpu/ops/pallas/render_fused.py:89",
+        "render_bwd": "split_vae_tpu/ops/pallas/render_packed.py:124; "
+                      "split_vae_tpu/ops/pallas/render_fused.py:119",
+        "crop_fwd": "tools/pallas_research/crop_packed.py:64; "
+                    "tools/pallas_research/crop_fused.py:33",
+        "crop_bwd": "tools/pallas_research/crop_packed.py:80; "
+                    "tools/pallas_research/crop_fused.py:42",
+    }
     kernels = []
-    for name, body in (("fwd", 87), ("bwd", 124)):
+    for name in ("render_fwd", "render_bwd", "crop_fwd", "crop_bwd"):
+        ms, plain_ms, library_ms = times[name]
         t, by, _, _ = bound[name]
         kernels.append({
-            "name": f"render_{name}", "route": "cuda",
-            "source": "split_vae_torch/csrc/render.cu",
-            "replaces": f"split_vae_tpu/ops/pallas/render_packed.py:{body}",
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": times[name], "kernel_ms": times[name], "plain_ms": times["plain_" + name],
-            "bound_ms": t, "bound_by": by, "library_ms": None,
+            "name": name, "route": "cuda", "source": sources[name.split("_")[0]],
+            "replaces": replaces[name],
+            "launches": sum(path[name] for path in launches.values()),
+            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
+            "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t, "bound_by": by, "library_ms": library_ms,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

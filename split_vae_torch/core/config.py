@@ -3,7 +3,8 @@
 Same fields and defaults as ``split_vae_tpu/core/config.py`` (BaseConfig and
 SpairConfig); the argument parsers come with the CLI. ``config5`` gives
 BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as ``bench.py::measure_spair``
-sets it.
+sets it; ``config_bg_spair`` and ``config_glimpse_spair`` give two more
+full-width configurations at the SpairConfig defaults.
 """
 
 from __future__ import annotations
@@ -104,3 +105,15 @@ CONFIG5 = dict(
 
 def config5(**overrides) -> SpairConfig:
     return SpairConfig(**{**CONFIG5, **overrides})
+
+
+def config_bg_spair(**overrides) -> SpairConfig:
+    """BG-SPAIR at the defaults (32-px objects on 48-px canvases), batch 256."""
+    return SpairConfig(**{**dict(model="bg_spair", batch_size=256), **overrides})
+
+
+def config_glimpse_spair(**overrides) -> SpairConfig:
+    """LGGlimpseSPAIR with 28-px objects (not a multiple of 8) in 4-px patches,
+    the conv background path, batch 256."""
+    return SpairConfig(**{**dict(model="lg_glimpse_spair", batch_size=256, object_size=28,
+                                 patch_size=4), **overrides})

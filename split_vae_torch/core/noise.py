@@ -38,6 +38,12 @@ class Noise:
             return self._next(shape)
         return torch.rand(tuple(shape), generator=self.generator, device=self.device)
 
+    def permutation(self, n: int) -> torch.Tensor:
+        """A random permutation of range(n), int64; a replayed one is taken as it is."""
+        if self._replay is not None:
+            return self._next((n,)).to(torch.int64)
+        return torch.randperm(n, generator=self.generator, device=self.device)
+
     def seed(self) -> torch.Tensor:
         """An int32 seed in [0, 2^31 - 1), as a one-element tensor on the device
         (the render kernels read it there, so drawing it needs no sync)."""

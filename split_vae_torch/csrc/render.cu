@@ -30,13 +30,16 @@
 //
 // Shared-memory bank conflicts are the first limit of such small products:
 // every shared array has an odd row length, and a thread's rows and columns
-// are strided (m = tm + i*MT), so the 32 threads of a warp read 32 banks.
+// are strided (m = tm + i*MT, see tile_gemm.cuh), so the 32 threads of a warp
+// read 32 banks.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (split_vae_torch/kernels/render.py loads it with ctypes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_gemm.cuh"
 
 namespace {
 
@@ -75,52 +78,6 @@ __device__ __forceinline__ float normal_at(uint32_t key, uint32_t pos) {
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
-}
-
-// C[m, n] = sum_c sum_k A[c*as + m*am + k*ak] * B[c*bs + n*bn + k*bk] for an
-// M x N x K product over nc channels. Each thread computes TM x TN entries,
-// rows tm + i*MT and columns tn + j*NT, so neighbouring threads touch
-// neighbouring columns. C may be shared or global memory.
-template <int TM, int TN>
-__device__ void gemm(const float* A, int as, int am, int ak, const float* B, int bs, int bn,
-                     int bk, float* Cp, int cm, int cn, int M, int N, int K, int nc = 1) {
-  const int MT = (M + TM - 1) / TM, NT = (N + TN - 1) / TN;
-  for (int t = threadIdx.x; t < MT * NT; t += blockDim.x) {
-    const int tm = t / NT, tn = t % NT;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      const float* Ac = A + c * as;
-      const float* Bc = B + c * bs;
-      for (int k = 0; k < K; ++k) {
-        float a[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int m = tm + i * MT;
-          a[i] = (m < M) ? Ac[m * am + k * ak] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int n = tn + j * NT;
-          bv[j] = (n < N) ? Bc[n * bn + k * bk] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int m = tm + i * MT, n = tn + j * NT;
-        if (m < M && n < N) Cp[m * cm + n * cn] = acc[i][j];
-      }
-  }
 }
 
 struct Shapes {

@@ -39,15 +39,14 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import numpy as np
 import torch
+
+from split_vae_torch.kernels.build import build as build_library
+from split_vae_torch.kernels.build import check_tensor as _check
+from split_vae_torch.kernels.build import stream_of as _stream
 
 # Launch counts of the forward and backward kernels: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -55,10 +54,6 @@ fwd_launches = 0
 bwd_launches = 0
 
 _EPS = 1e-8
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "csrc", "render.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build")
 _lib = None
 
 
@@ -179,46 +174,10 @@ def render_noise(seed: torch.Tensor, b: int, k: int, c: int, h: int, w: int) -> 
 # --------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the render kernels need the CUDA toolkit")
-
-
-def build() -> str:
-    """Compiles csrc/render.cu for sm_90a (once per source content); returns the .so path.
-
-    The compiler's report (registers, shared memory and spills of each
-    kernel, from ``-Xptxas -v``) is kept beside it as ``render_<digest>.log``.
-    """
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"render_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.CDLL(build_library("render"))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.render_fwd.argtypes = [p] * 7 + [f, p] + [i] * 7 + [p]
         lib.render_fwd.restype = i
@@ -232,20 +191,10 @@ def _load():
     return _lib
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         msg = _load().render_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
-
-
-def _check(t: torch.Tensor, dtype, name: str) -> None:
-    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous CUDA {dtype} tensor, got "
-                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
 def _shapes(objs, wy, wx, z_pres, depth_w, bg):

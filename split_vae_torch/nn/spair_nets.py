@@ -26,6 +26,102 @@ def _conv_out(n: int, stride: int) -> int:
     return -(-n // stride)  # SAME padding: ceil(n / stride)
 
 
+def _encode_image(convs, dense_mean, dense_sig, x: torch.Tensor, noise: Noise):
+    """Three stride-2 convs, flatten, mean and softplus sigma heads, one sample."""
+    for conv in convs:
+        x = F.relu(conv(x))
+    x = flatten(x)
+    z_mean = dense_mean(x)
+    z_sig = F.softplus(dense_sig(x))
+    return reparameterize(z_mean, z_sig, noise.normal(z_sig.shape)), z_mean, z_sig
+
+
+def _decode_image(dense, conv, up1, up2, up3, z: torch.Tensor, image_hw) -> torch.Tensor:
+    """Dense to an [h/8, w/8, 128] map, a conv, three 2x resize+convs to a sigmoid image.
+
+    Reference quirk preserved: the 32-filter conv before the last one has a
+    sigmoid activation (spair/spair.py:168).
+    """
+    h, w = image_hw
+    x = F.relu(dense(z)).reshape(-1, h // 8, w // 8, 128)
+    x = F.relu(conv(x))
+    x = F.relu(up1(x))
+    x = torch.sigmoid(up2(x))
+    return torch.sigmoid(up3(x))
+
+
+def _encoded_features(image_hw) -> int:
+    h, w = image_hw
+    for _ in range(3):
+        h, w = _conv_out(h, 2), _conv_out(w, 2)
+    return h * w * 128
+
+
+class ImageEncoder(nn.Module):
+    """Conv VAE encoder for backgrounds and the local path (spair/spair.py:110-133)."""
+
+    def __init__(self, image_hw: Tuple[int, int], num_channel: int, latent_size: int,
+                 device=None):
+        super().__init__()
+        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device)
+        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device)
+        self.Conv_2 = Conv(64, 128, (3, 3), stride=2, device=device)
+        self.Dense_0 = Dense(_encoded_features(image_hw), latent_size, device)
+        self.Dense_1 = Dense(_encoded_features(image_hw), latent_size, device)
+
+    def forward(self, x: torch.Tensor, noise: Noise):
+        return _encode_image((self.Conv_0, self.Conv_1, self.Conv_2), self.Dense_0,
+                             self.Dense_1, x, noise)
+
+
+class ImageDecoder(nn.Module):
+    """Conv decoder to a sigmoid image (spair/spair.py:157-182)."""
+
+    def __init__(self, latent_size: int, image_hw: Tuple[int, int], num_channel: int = 3,
+                 device=None):
+        super().__init__()
+        self.image_hw = tuple(image_hw)
+        h, w = image_hw
+        self.Dense_0 = Dense(latent_size, h // 8 * (w // 8) * 128, device)
+        self.Conv_0 = Conv(128, 128, (3, 3), device=device)
+        self.Conv_1 = Resize2xConv(128, 64, (h // 4, w // 4), device)
+        self.Conv_2 = Resize2xConv(64, 32, (h // 2, w // 2), device)
+        self.Conv_3 = Resize2xConv(32, num_channel, (h, w), device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return _decode_image(self.Dense_0, self.Conv_0, self.Conv_1, self.Conv_2, self.Conv_3,
+                             z, self.image_hw)
+
+
+class BackgroundModel(nn.Module):
+    """Background VAE in one module (spair/spair.py:205-244): the conv encoder
+    and decoder above under one flax scope, so the decoder's layers are
+    ``Dense_2`` and ``Conv_3`` .. ``Conv_6``."""
+
+    def __init__(self, image_hw: Tuple[int, int], bg_latent_size: int, num_channel: int = 3,
+                 device=None):
+        super().__init__()
+        self.image_hw = tuple(image_hw)
+        h, w = image_hw
+        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device)
+        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device)
+        self.Conv_2 = Conv(64, 128, (3, 3), stride=2, device=device)
+        self.Dense_0 = Dense(_encoded_features(image_hw), bg_latent_size, device)
+        self.Dense_1 = Dense(_encoded_features(image_hw), bg_latent_size, device)
+        self.Dense_2 = Dense(bg_latent_size, h // 8 * (w // 8) * 128, device)
+        self.Conv_3 = Conv(128, 128, (3, 3), device=device)
+        self.Conv_4 = Resize2xConv(128, 64, (h // 4, w // 4), device)
+        self.Conv_5 = Resize2xConv(64, 32, (h // 2, w // 2), device)
+        self.Conv_6 = Resize2xConv(32, num_channel, (h, w), device)
+
+    def forward(self, x: torch.Tensor, noise: Noise):
+        z, z_mean, z_sig = _encode_image((self.Conv_0, self.Conv_1, self.Conv_2), self.Dense_0,
+                                         self.Dense_1, x, noise)
+        bg = _decode_image(self.Dense_2, self.Conv_3, self.Conv_4, self.Conv_5, self.Conv_6, z,
+                           self.image_hw)
+        return bg, z, z_mean, z_sig
+
+
 class ImageEncoderDense(nn.Module):
     """MLP VAE encoder 1024 -> 500 (spair/spair.py:135-154); flattens the NHWC image."""
 
@@ -89,6 +185,74 @@ class ObjEncoder(nn.Module):
         return z, z_mean, z_sig
 
 
+class ObjEncoderScramble(nn.Module):
+    """Per-glimpse encoder that also gives a per-glimpse local latent from a
+    patch-scrambled view of each glimpse (spair/spair.py:275-338, as the JAX
+    package settles it): one patch permutation shared by all glimpses of the
+    batch, and the reassembled scrambled glimpse returned as the x_hat target.
+    """
+
+    def __init__(self, object_size: int, num_channel: int, latent_size: int, patch_size: int,
+                 local_latent_size: int, device=None):
+        super().__init__()
+        self.patch_size = patch_size
+        side = _conv_out(_conv_out(object_size, 2), 2)
+        for prefix, latent in (("what", latent_size), ("local", local_latent_size)):
+            setattr(self, f"{prefix}_c1", Conv(num_channel, 32, (3, 3), stride=2, device=device))
+            setattr(self, f"{prefix}_c2", Conv(32, 64, (3, 3), stride=2, device=device))
+            setattr(self, f"{prefix}_d1", Dense(side * side * 64, latent_size * 2, device))
+            setattr(self, f"{prefix}_mu", Dense(latent_size * 2, latent, device))
+            setattr(self, f"{prefix}_sigma", Dense(latent_size * 2, latent, device))
+
+    def _vae_head(self, v: torch.Tensor, prefix: str):
+        v = F.relu(getattr(self, f"{prefix}_c1")(v))
+        v = F.relu(getattr(self, f"{prefix}_c2")(v))
+        v = F.relu(getattr(self, f"{prefix}_d1")(flatten(v)))
+        return (getattr(self, f"{prefix}_mu")(v),
+                F.softplus(getattr(self, f"{prefix}_sigma")(v)))
+
+    def forward(self, glimpses: torch.Tensor, noise: Noise):
+        b, k, gh, gw, c = glimpses.shape
+        x = glimpses.reshape(b * k, gh, gw, c)
+        p = self.patch_size
+        nh, nw = gh // p, gw // p
+        patches = x.reshape(b * k, nh, p, nw, p, c).permute(0, 1, 3, 2, 4, 5)
+        patches = patches.reshape(b * k, nh * nw, p, p, c)
+        patches = patches[:, noise.permutation(nh * nw)]
+        x_hat = patches.reshape(b * k, nh, nw, p, p, c).permute(0, 1, 3, 2, 4, 5)
+        x_hat = x_hat.reshape(b * k, gh, gw, c)
+
+        z_what_mean, z_what_sigma = self._vae_head(x, "what")
+        z_what = reparameterize(z_what_mean, z_what_sigma, noise.normal(z_what_sigma.shape))
+        z_l_mean, z_l_sig = self._vae_head(x_hat, "local")
+        z_l = reparameterize(z_l_mean, z_l_sig, noise.normal(z_l_sig.shape))
+        return (z_what, z_what_mean, z_what_sigma, z_l, z_l_mean, z_l_sig,
+                x_hat.reshape(b, k, gh, gw, c))
+
+
+class GlimpseDecoder(nn.Module):
+    """z_l -> the scrambled glimpse's reconstruction [B*K, os, os, C], sigmoid."""
+
+    def __init__(self, object_size: int, num_channel: int, latent_size: int, device=None):
+        super().__init__()
+        self.object_size = object_size
+        os_ = object_size
+        self.Dense_0 = Dense(latent_size, latent_size * 2, device)
+        self.Dense_1 = Dense(latent_size * 2, os_ // 4 * (os_ // 4) * 32, device)
+        self.Conv_0 = Conv(32, 64, (3, 3), device=device)
+        self.Conv_1 = Resize2xConv(64, 32, (os_ // 2, os_ // 2), device)
+        self.Conv_2 = Resize2xConv(32, num_channel, (os_, os_), device)
+
+    def forward(self, z_l: torch.Tensor) -> torch.Tensor:
+        os_ = self.object_size
+        x = F.relu(self.Dense_0(z_l))
+        x = F.relu(self.Dense_1(x))
+        x = x.reshape(-1, os_ // 4, os_ // 4, 32)
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        return torch.sigmoid(self.Conv_2(x))
+
+
 class ObjDecoder(nn.Module):
     """z_what -> RGB object + alpha, both sigmoid (spair/spair.py:341-366)."""
 
@@ -121,7 +285,9 @@ class SpairEncoder(nn.Module):
     Backbone: 3 convs (128, k=4, strides 2/2/3) to a gh x gw cell grid, 1x1
     convs to 100 features per cell, then box net -> z_where (+8 passthrough),
     STN glimpse crop, object encoder -> z_what, depth net, presence net with
-    Binary-Concrete sampling.
+    Binary-Concrete sampling. With ``glimpse_local`` the object encoder is
+    ``ObjEncoderScramble`` and four more outputs follow: the per-cell local
+    latent, its mean and sigma, and the scrambled glimpses.
     """
 
     n_z_where = 4
@@ -129,11 +295,13 @@ class SpairEncoder(nn.Module):
 
     def __init__(self, image_hw: Tuple[int, int], num_channel: int, object_size: int,
                  latent_size: int, tau: float, concat: bool = False,
+                 glimpse_local: bool = False, patch_size: int = 4,
                  local_latent_size: int = 64, device=None):
         super().__init__()
         self.object_size = object_size
         self.tau = tau
         self.concat = concat
+        self.glimpse_local = glimpse_local
         self.conv1 = Conv(num_channel, 128, (4, 4), stride=2, device=device)
         self.conv2 = Conv(128, 128, (4, 4), stride=2, device=device)
         self.conv3 = Conv(128, 128, (4, 4), stride=3, device=device)
@@ -149,7 +317,11 @@ class SpairEncoder(nn.Module):
         self.depth_d2 = Dense(64, 2 + npt, device)
         self.pres_d1 = Dense(feat + npt + nw + latent_size + 1, 64, device)
         self.pres_d2 = Dense(64, 1, device)
-        self.obj_encoder = ObjEncoder(object_size, num_channel, latent_size, device)
+        if glimpse_local:
+            self.obj_encoder = ObjEncoderScramble(object_size, num_channel, latent_size,
+                                                  patch_size, local_latent_size, device)
+        else:
+            self.obj_encoder = ObjEncoder(object_size, num_channel, latent_size, device)
         if concat:
             self.zl_d1 = Dense(local_latent_size, 16, device)
             self.zl_d2 = Dense(16, 16, device)
@@ -184,7 +356,11 @@ class SpairEncoder(nn.Module):
         z_where_grid = z_where.reshape(b, gh, gw, nw)
 
         all_glimpses, _ = stn_crop(x, z_where_grid, (self.object_size, self.object_size))
-        z_what, z_what_mean, z_what_sigma = self.obj_encoder(all_glimpses, noise)
+        if self.glimpse_local:
+            (z_what, z_what_mean, z_what_sigma, zl_g, zl_g_mean, zl_g_sig,
+             x_hat_glimpses) = self.obj_encoder(all_glimpses, noise)
+        else:
+            z_what, z_what_mean, z_what_sigma = self.obj_encoder(all_glimpses, noise)
 
         partial_program = torch.cat([partial_program, z_what], dim=1)
         layer_inp = torch.cat([features, features_1, partial_program], dim=1)
@@ -206,11 +382,14 @@ class SpairEncoder(nn.Module):
         def grid(v):
             return v.reshape(b, gh, gw, -1)
 
-        return (grid(z_what), grid(z_what_mean), grid(z_what_sigma),
+        base = (grid(z_what), grid(z_what_mean), grid(z_what_sigma),
                 z_where_grid, grid(z_where_mean), grid(z_where_sigma),
                 grid(z_depth), grid(z_depth_mean), grid(z_depth_sigma),
                 grid(z_pres), grid(z_pres_logits), grid(z_pres_pre_sigmoid),
                 all_glimpses)
+        if self.glimpse_local:
+            return base + (grid(zl_g), grid(zl_g_mean), grid(zl_g_sig), x_hat_glimpses)
+        return base
 
 
 class SpairDecoder(nn.Module):

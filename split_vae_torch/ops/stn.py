@@ -14,6 +14,8 @@ from typing import Tuple
 
 import torch
 
+from split_vae_torch.kernels.crop import stn_crop_apply
+
 DEFAULT_CELL_RATIO = (2.0 * 12.0) / 48.0
 
 
@@ -76,25 +78,42 @@ def _sample_coords(scale, trans, out_size: int, in_size: int) -> torch.Tensor:
     return 0.5 * (pos + 1.0) * (in_size - 1)
 
 
+def crop_interp_weights(z_where: torch.Tensor, in_hw: Tuple[int, int],
+                        out_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO):
+    """Weights of the crop transform: (wy [B,K,ho,H], wx [B,K,wo,W], bbox [B,K,4])."""
+    h_in, w_in = in_hw
+    ho, wo = out_hw
+    sx, sy, tx, ty = zwhere_to_params(z_where, cell_ratio)
+    wx = _interp_matrix(_sample_coords(sx, tx, wo, w_in), w_in)
+    wy = _interp_matrix(_sample_coords(sy, ty, ho, h_in), h_in)
+    return wy, wx, zwhere_to_bbox(sx, sy, tx, ty)
+
+
 def stn_crop(img: torch.Tensor, z_where: torch.Tensor, out_hw: Tuple[int, int],
              cell_ratio: float = DEFAULT_CELL_RATIO):
     """Crop per-cell glimpses: img [B,H,W,C], z_where [B,gh,gw,4] ->
-    (glimpses [B,K,ho,wo,C], bbox [B,K,4])."""
-    h_in, w_in = img.shape[1], img.shape[2]
-    ho, wo = out_hw
-    sx, sy, tx, ty = zwhere_to_params(z_where, cell_ratio)
-    bbox = zwhere_to_bbox(sx, sy, tx, ty)
-    wx = _interp_matrix(_sample_coords(sx, tx, wo, w_in), w_in)  # [B, K, wo, W]
-    wy = _interp_matrix(_sample_coords(sy, ty, ho, h_in), h_in)  # [B, K, ho, H]
-    tmp = torch.einsum("bkpi,bijc->bkpjc", wy, img)
-    out = torch.einsum("bkpjc,bkqj->bkpqc", tmp, wx)
-    return out, bbox
+    (glimpses [B,K,ho,wo,C], bbox [B,K,4]).
+
+    The chain z_where -> wy, wx stays in autograd; the two products go through
+    ``kernels/crop.py`` (the CUDA kernel pair on a GPU).
+    """
+    wy, wx, bbox = crop_interp_weights(z_where, img.shape[1:3], out_hw, cell_ratio)
+    return stn_crop_apply(img, wy, wx), bbox
 
 
 def paste_interp_weights(z_where: torch.Tensor, out_hw: Tuple[int, int],
                          in_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO,
                          eps: float = 1e-5):
     """Weights of the inverse (paste) transform: (wy [B,K,H,h], wx [B,K,W,w], bbox [B,K,4])."""
+    wy, wx, bbox, _ = paste_interp_weights_ys(z_where, out_hw, in_hw, cell_ratio, eps)
+    return wy, wx, bbox
+
+
+def paste_interp_weights_ys(z_where: torch.Tensor, out_hw: Tuple[int, int],
+                            in_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO,
+                            eps: float = 1e-5):
+    """paste_interp_weights and the row sample coordinates ys [B,K,H], which
+    locate each cell's paste support (the windowed render needs them)."""
     h_in, w_in = in_hw
     ho, wo = out_hw
     sx, sy, tx, ty = zwhere_to_params(z_where, cell_ratio)
@@ -104,8 +123,8 @@ def paste_interp_weights(z_where: torch.Tensor, out_hw: Tuple[int, int],
     tx_i = -tx / (sx + eps)
     ty_i = -ty / (sy + eps)
     wx = _interp_matrix(_sample_coords(sx_i, tx_i, wo, w_in), w_in)
-    wy = _interp_matrix(_sample_coords(sy_i, ty_i, ho, h_in), h_in)
-    return wy, wx, bbox
+    ys = _sample_coords(sy_i, ty_i, ho, h_in)
+    return _interp_matrix(ys, h_in), wx, bbox, ys
 
 
 def stn_paste(objs: torch.Tensor, z_where: torch.Tensor, out_hw: Tuple[int, int],

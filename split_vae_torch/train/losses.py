@@ -1,7 +1,7 @@
-"""SPAIR-family loss (split_vae_tpu/train/losses.py::spair_loss), the lg_spair branch.
+"""SPAIR-family loss (split_vae_tpu/train/losses.py::spair_loss).
 
-spair/trainer.py:136-234 with its annealing schedules; metric keys are the
-reference's. Only ``split_z_l=True`` is ported so far.
+spair/trainer.py:136-234 with its annealing schedules, one branch a model;
+metric keys are the reference's.
 """
 
 from __future__ import annotations
@@ -21,14 +21,22 @@ from split_vae_torch.ops.distributions import (
 from split_vae_torch.train import schedules
 
 
+def _cat_kl(mean_a, sig_a, mean_b, sig_b) -> torch.Tensor:
+    """gaussian_kl_safe of two posteriors concatenated along the last axis."""
+    return gaussian_kl_safe(torch.cat([mean_a, mean_b], dim=-1),
+                            torch.cat([sig_a, sig_b], dim=-1))
+
+
 def spair_loss(out: SpairOutput, images: torch.Tensor, config, step,
                training: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """LG-SPAIR total loss; for test steps the anneals are pinned
-    (prior_z_pres_prob = 0.99, prior_z_zoom_mean = config.prior_z_zoom)."""
-    if config.model != "lg_spair" or not config.split_z_l:
-        raise NotImplementedError("only the lg_spair loss with split_z_l is ported yet")
-    c = images.shape[-1] // 2
-    x, x_hat = images[..., :c], images[..., c:]
+    """SPAIR-family total loss with its anneals; for test steps the anneals are
+    pinned (prior_z_pres_prob = 0.99, prior_z_zoom_mean = config.prior_z_zoom,
+    beta_t = config.beta)."""
+    if config.model == "lg_spair":
+        c = images.shape[-1] // 2
+        x, x_hat = images[..., :c], images[..., c:]
+    else:
+        x, x_hat = images, None
 
     x_recon_loss = mean_sum(bernoulli_xent(x, out.x_recon))
 
@@ -36,9 +44,11 @@ def spair_loss(out: SpairOutput, images: torch.Tensor, config, step,
         prior_z_pres_prob = schedules.z_pres_prior_prob(step, config.z_pres_anneal_step)
         prior_z_zoom_mean = schedules.z_zoom_prior_mean(
             step, config.prior_z_zoom, config.prior_z_zoom_start, config.z_pres_anneal_step)
+        beta_t = schedules.beta_warmup(step, config.beta, config.anneal_until)
     else:
         prior_z_pres_prob = 0.99
         prior_z_zoom_mean = config.prior_z_zoom
+        beta_t = config.beta
 
     z_pres_kl = z_pres_count_kl(out.z_pres, out.z_pres_logits, out.z_pres_pre_sigmoid,
                                 prior_z_pres_prob, config.tau)
@@ -56,25 +66,56 @@ def spair_loss(out: SpairOutput, images: torch.Tensor, config, step,
         "z_depth_kl_loss": z_depth_kl,
         "z_pres_kl_loss": z_pres_kl,
     }
-    obj_kls = (config.z_what_beta * z_what_kl + z_depth_kl + z_where_kl
-               + z_where_zoom_kl + z_pres_kl)
 
-    # spair/trainer.py:190-200 (split_z_l)
-    x_hat_recon_loss = mean_sum(bernoulli_xent(x_hat, out.x_hat_recon))
-    z_l_kl = gaussian_kl_safe(out.z_l_mean, out.z_l_sig)
-    z_bg_kl = gaussian_kl_safe(out.z_bg_mean, out.z_bg_sig)
-    total = (config.z_bg_beta * z_bg_kl + config.z_l_beta * z_l_kl + x_hat_recon_loss
-             + config.reconstruction_weight * x_recon_loss + config.beta * obj_kls)
-    metrics.update({
-        "z_bg_kl_loss": z_bg_kl,
-        "z_l_kl_loss": z_l_kl,
-        "x_hat_recon_loss": x_hat_recon_loss,
-    })
-    if not training:
-        # Reference test-step quirk: the reported z_bg KL uses concat([z_bg, z_l])
-        # (spair/trainer.py:266).
-        metrics["z_bg_kl_loss"] = gaussian_kl_safe(
-            torch.cat([out.z_bg_mean, out.z_l_mean], dim=1),
-            torch.cat([out.z_bg_sig, out.z_l_sig], dim=1))
+    def obj_kls(what_kl):
+        return (config.z_what_beta * what_kl + z_depth_kl + z_where_kl + z_where_zoom_kl
+                + z_pres_kl)
+
+    recon = config.reconstruction_weight * x_recon_loss
+    total = recon + beta_t * obj_kls(z_what_kl)
+
+    # In the two local-path branches the logged z_what KL stays the plain
+    # per-cell one; its concat form enters only the total (spair/trainer.py:162).
+    if config.model == "lg_spair":
+        x_hat_recon_loss = mean_sum(bernoulli_xent(x_hat, out.x_hat_recon))
+        z_l_kl = gaussian_kl_safe(out.z_l_mean, out.z_l_sig)
+        z_bg_kl = gaussian_kl_safe(out.z_bg_mean, out.z_bg_sig)
+        if not config.split_z_l:
+            # spair/trainer.py:170-188: the concat forms of the KLs, raw config.beta.
+            if config.concat_z_bg:
+                z_bg_kl = _cat_kl(out.z_bg_mean, out.z_bg_sig, out.z_l_mean, out.z_l_sig)
+            if config.concat_z_what:
+                b, gh, gw = out.z_what_mean.shape[:3]
+                tiled_m = out.z_l_mean[:, None, None, :].expand(b, gh, gw, -1)
+                tiled_s = out.z_l_sig[:, None, None, :].expand(b, gh, gw, -1)
+                z_what_kl = _cat_kl(out.z_what_mean, out.z_what_sigma, tiled_m, tiled_s)
+            total = (config.z_bg_beta * z_bg_kl + recon + config.beta * obj_kls(z_what_kl)
+                     + x_hat_recon_loss)
+        else:
+            # spair/trainer.py:190-200
+            total = (config.z_bg_beta * z_bg_kl + config.z_l_beta * z_l_kl + x_hat_recon_loss
+                     + recon + config.beta * obj_kls(z_what_kl))
+        if not training:
+            # Reference test-step quirk: the reported z_bg KL always uses
+            # concat([z_bg, z_l]), whatever concat_z_bg says (spair/trainer.py:266).
+            z_bg_kl = _cat_kl(out.z_bg_mean, out.z_bg_sig, out.z_l_mean, out.z_l_sig)
+        metrics.update({"z_bg_kl_loss": z_bg_kl, "z_l_kl_loss": z_l_kl,
+                        "x_hat_recon_loss": x_hat_recon_loss})
+    elif config.model == "lg_glimpse_spair":
+        # spair/trainer.py:203-214
+        z_bg_kl = gaussian_kl_safe(out.z_bg_mean, out.z_bg_sig)
+        z_l_kl = gaussian_kl_safe(out.z_l_mean, out.z_l_sig)
+        z_what_concat_kl = _cat_kl(out.z_what_mean, out.z_what_sigma, out.z_l_mean, out.z_l_sig)
+        x_hat_recon_loss = mean_sum(bernoulli_xent(out.x_hat.detach(), out.x_hat_recon))
+        total = (config.z_bg_beta * z_bg_kl + x_hat_recon_loss + recon
+                 + config.beta * obj_kls(z_what_concat_kl))
+        metrics.update({"z_bg_kl_loss": z_bg_kl, "z_l_kl_loss": z_l_kl,
+                        "x_hat_recon_loss": x_hat_recon_loss})
+    elif config.model == "bg_spair":
+        # spair/trainer.py:217-224
+        z_bg_kl = gaussian_kl_safe(out.z_bg_mean, out.z_bg_sig)
+        total = config.z_bg_beta * z_bg_kl + recon + beta_t * obj_kls(z_what_kl)
+        metrics["z_bg_kl_loss"] = z_bg_kl
+
     metrics["total_loss"] = total
     return total, metrics

@@ -1,14 +1,15 @@
-"""The LG-SPAIR train step (split_vae_tpu/train/steps.py::make_spair_train_step).
+"""The SPAIR train and eval steps (split_vae_tpu/train/steps.py).
 
-One step: raw batch -> [0, 1] floats -> patch scramble on the device ->
-forward (the fused render on a GPU) -> loss -> backward -> clip, Adam, skip
-of non-finite updates. fp32 only: the step turns TF32 off for matmuls and
-cuDNN convolutions, which would otherwise break parity with the f32 reference.
+A train step: raw batch -> [0, 1] floats -> for lg_spair the patch scramble on
+the device -> forward (the crop and the fused render through their kernels on
+a GPU) -> loss -> backward -> clip, Adam, skip of non-finite updates. fp32
+only: the steps turn TF32 off for matmuls and cuDNN convolutions, which would
+otherwise break parity with the f32 reference.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -33,6 +34,15 @@ def use_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def model_inputs(config, x: torch.Tensor, noise: Noise) -> torch.Tensor:
+    """The model's input: lg_spair reads the image beside its scrambled view."""
+    if config.model != "lg_spair":
+        return x
+    size = config.patch_size
+    return augment_batch(x, config.augmentation, size,
+                         u=noise.uniform(scramble_shape(x.shape, size)))
+
+
 def make_spair_train_step(config) -> Callable:
     """Returns train_step(state, batch, replay=None) -> (state, metrics).
 
@@ -43,18 +53,11 @@ def make_spair_train_step(config) -> Callable:
     if getattr(config, "compute_dtype", "float32") != "float32":
         raise NotImplementedError("only compute_dtype='float32' is ported yet")
     use_fp32()
-    augmented = config.model == "lg_spair"
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         noise = Noise(state.generator, replay)
-        x = normalize_images(batch, "unit")
-        if augmented:
-            size = config.patch_size
-            images = augment_batch(x, config.augmentation, size,
-                                   u=noise.uniform(scramble_shape(x.shape, size)))
-        else:
-            images = x
+        images = model_inputs(config, normalize_images(batch, "unit"), noise)
         out = state.model(images, True, noise)
         total, metrics = losses.spair_loss(out, images, config, state.step, training=True)
         params = state.params
@@ -68,3 +71,52 @@ def make_spair_train_step(config) -> Callable:
         return state, metrics
 
     return train_step
+
+
+def make_spair_eval_step(config, model) -> Callable:
+    """Returns eval_step(generator, batch, labels=None, replay=None) ->
+    (out, metrics, images), under ``torch.no_grad``.
+
+    Reference quirks preserved: the test step calls the model with
+    training=True (spair/trainer.py:241), so the Concrete sampling and the
+    render noise stay on, and with fused=False, so the per-cell canvases that
+    the eval's consumers read exist; the loss runs with training=False at
+    step 0. ``replay`` (tests only) lists the noise in draw order.
+    """
+    use_fp32()
+
+    def eval_step(generator: torch.Generator, batch: torch.Tensor,
+                  labels: Optional[torch.Tensor] = None,
+                  replay: Optional[Sequence[torch.Tensor]] = None):
+        with torch.no_grad():
+            noise = Noise(generator, replay)
+            images = model_inputs(config, normalize_images(batch, "unit"), noise)
+            out = model(images, True, noise, fused=False)
+            _, metrics = losses.spair_loss(out, images, config, 0, training=False)
+            if labels is not None:
+                pred_count = torch.sum(torch.round(torch.sigmoid(out.z_pres_logits)),
+                                       dim=(1, 2, 3))
+                metrics.update(count_metrics(pred_count, labels))
+        return out, metrics, images
+
+    return eval_step
+
+
+def count_metrics(pred_count: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Object-count eval columns (spair/trainer.py:292-301).
+
+    ``MAPE test`` keeps the exact tf.keras mean_absolute_percentage_error
+    semantics: the denominator is clipped at 1e-7, so an image with zero
+    objects contributes err * 1e9. ``MAPE_nonzero test`` is the same statistic
+    over the images whose count is above zero.
+    """
+    labels = labels.to(torch.float32)
+    err = torch.abs(labels - pred_count)
+    pct = err / torch.clamp_min(torch.abs(labels), 1e-7) * 100.0
+    nonzero = (torch.abs(labels) > 0).to(torch.float32)
+    return {
+        "MAE test": torch.mean(err),
+        "MAPE test": torch.mean(pct),
+        "MAPE_nonzero test": torch.sum(pct * nonzero) / torch.clamp_min(torch.sum(nonzero), 1.0),
+        "count_acc": torch.mean((pred_count == labels).to(torch.float32)),
+    }

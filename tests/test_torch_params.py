@@ -1,10 +1,10 @@
 """Parameter conversion (split_vae_torch.interop.flax_params) and the port's
 independence from JAX.
 
-Every leaf of an LG-SPAIR flax tree converts into the port's state_dict and
-back unchanged; a leaf with no counterpart on either side raises; and no
-module of the port, nor chip_smoke.py, imports jax, flax, optax or the JAX
-package.
+Every leaf of a flax tree of each SPAIR model converts into the port's
+state_dict and back unchanged; a leaf with no counterpart on either side
+raises; and no module of the port, nor chip_smoke.py, imports jax, flax,
+optax, the JAX package or its research tools.
 """
 
 import ast
@@ -18,6 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from split_vae_torch.core.config import SpairConfig as PortConfig  # noqa: E402
 from split_vae_torch.core.config import config5  # noqa: E402
 from split_vae_torch.interop.flax_params import (  # noqa: E402
     flax_to_state_dict,
@@ -69,6 +70,56 @@ def test_every_leaf_converts_and_round_trips():
         np.testing.assert_array_equal(back[path], leaf, err_msg="/".join(path))
 
 
+FAMILY = {
+    "spair": dict(model="spair"),
+    "bg_spair": dict(model="bg_spair"),
+    "lg_glimpse_spair": dict(model="lg_glimpse_spair", object_size=12, patch_size=4),
+    "lg_glimpse_spair_dense_bg": dict(model="lg_glimpse_spair", dense_bg=True),
+    "lg_spair_conv": dict(model="lg_spair", concat_z_what=True),
+    "lg_spair_concat": dict(model="lg_spair", concat_z_bg=True, concat_backbone=True,
+                            dense_bg=True),
+}
+# For three models: a scope whose absence must raise, and a leaf the state_dict must hold.
+NEW_MODULES = {
+    "bg_spair": ("bg_model", "bg_model.Conv_6.weight"),
+    "lg_glimpse_spair": ("x_hat_decoder", "encoder.obj_encoder.local_sigma.weight"),
+    "lg_spair_conv": ("x_hat_encoder", "bg_decoder.Conv_3.bias"),
+}
+
+
+def _family_params(variant):
+    port_cfg = PortConfig(**{**SMALL, "image_size": (24, 24, 3), **FAMILY[variant]})
+    c = 6 if port_cfg.model == "lg_spair" else 3
+    variables = jax_model(SpairConfig(**port_cfg.__dict__)).init(
+        {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)},
+        jnp.zeros((2, 24, 24, c)), training=True)
+    return jax.tree.map(np.asarray, variables["params"]), torch_model(port_cfg, device="cpu")
+
+
+@pytest.mark.parametrize("variant", list(FAMILY))
+def test_family_leaves_convert_and_round_trip(variant):
+    params, model = _family_params(variant)
+    load_flax_params(model, params)
+    back = dict(_flat(state_dict_to_flax(model.state_dict())))
+    want = dict(_flat(params))
+    assert sorted(back) == sorted(want)
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(back[path], leaf, err_msg="/".join(path))
+
+
+@pytest.mark.parametrize("variant", list(NEW_MODULES))
+def test_family_unmapped_leaves_raise(variant):
+    params, model = _family_params(variant)
+    scope, leaf = NEW_MODULES[variant]
+    assert leaf in model.state_dict()
+    short = {k: v for k, v in params.items() if k != scope}
+    with pytest.raises(KeyError, match=scope):
+        flax_to_state_dict(short, model)
+    extra = {**params, scope: {**params[scope], "Dense_9": {"bias": np.zeros(2, np.float32)}}}
+    with pytest.raises(KeyError, match="Dense_9"):
+        flax_to_state_dict(extra, model)
+
+
 def test_unmapped_leaves_raise():
     params, model = _flax_params()
     extra = {**params, "stray": {"Dense_9": {"kernel": np.zeros((2, 2), np.float32)}}}
@@ -111,7 +162,7 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-@pytest.mark.parametrize("banned", ["jax", "flax", "optax", "split_vae_tpu"])
+@pytest.mark.parametrize("banned", ["jax", "flax", "optax", "split_vae_tpu", "tools"])
 def test_port_imports_no_jax(banned):
     for path in _sources():
         with open(path) as f:
