@@ -2,16 +2,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, SPAIR-family train steps at full width (B=256,
-48-px canvases, 4x4 cells, random weights from a seed), through the
-hand-written CUDA kernels: the fused paste+composite render and the STN
-glimpse crop. The paths:
+Drives the port's main paths at full width (random weights from a seed):
+SPAIR-family train steps (B=256, 48-px canvases, 4x4 cells) through the
+hand-written CUDA kernels (the fused paste+composite render, full-canvas and
+row-windowed, and the STN glimpse crop), and the LGVae train step, which has
+no hand-written kernel on it. The paths:
 
   P1  LG-SPAIR at BASELINE config #5 (Multi-Bird-Hard: 32-px objects, dense
       background and local paths);
   P2  BG-SPAIR at the SpairConfig defaults (32-px objects);
   P3  LGGlimpseSPAIR with 28-px objects in 4-px patches, the shapes that are
-      not multiples of 8.
+      not multiples of 8;
+  P4  P1's configuration, model and seed with the row-windowed render
+      selected in place of the full-canvas one;
+  P5  LGVae (SPLIT-VAE) at BASELINE config #2 (CelebA 64x64, B=64, patch 8,
+      latents 128/128), uint8 batches.
 
 Phases, each of which must pass:
 
@@ -20,18 +25,23 @@ Phases, each of which must pass:
      side, sm_90a), timed;
   3. each kernel against its plain PyTorch version on the card (TF32 off).
      Render: at the config-#5 shapes and at an unaligned shape (30-px objects
-     on 45-px canvases), with render noise 0 and 0.01. Crop: at 48 -> 32 px
-     and 48 -> 28 px (B=256), with 6 channels, and at a ragged shape (9 cells,
+     on 45-px canvases), with render noise 0 and 0.01. Windowed render: the
+     same shapes and noise levels and 28-px objects on 48 px, also against the
+     full-canvas kernel on the same inputs and seed (forward atol 3e-6) and
+     with g_wy exactly zero outside the bands. Crop: at 48 -> 32 px and
+     48 -> 28 px (B=256), with 6 channels, and at a ragged shape (9 cells,
      45 -> 30 px); all three gradients, and the two the model's path asks for.
      Forward atol 3e-5, gradients rtol 1e-3, atol 2e-4: the limits the JAX
      package's tests hold its Pallas kernels to (fp32 sums in another order);
   4. kernel, plain and, for the crop, library times (the one-call einsum) at
-     the shapes of P1/P2 and of P3 (median of CUDA-event timings), and bounds;
+     the shapes of P1/P2/P4 and of P3 (median of CUDA-event timings), and
+     bounds; the windowed pair in turns with the full-canvas pair;
   5. one small train step on the card against the same step on the CPU (plain
-     kernels' versions) for LG-SPAIR, BG-SPAIR and LGGlimpseSPAIR, then each
-     main path: train steps with the kernels' launch counts set to 0 before
-     and read after, a profile of three more steps (device time by kernel
-     family, the device's idle share), and one eval step with labels;
+     kernels' versions) for LG-SPAIR (full-canvas and windowed render),
+     BG-SPAIR, LGGlimpseSPAIR and LGVae, then each main path: train steps with
+     the kernels' launch counts set to 0 before and read after, a profile of
+     three more steps (device time by kernel family, the device's idle share),
+     and one eval step; P4's losses beside P1's;
   6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -54,6 +64,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 FWD_ATOL = 3e-5
+WINDOWED_VS_FULL_ATOL = 3e-6
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-4
 TRAIN_STEPS, WARMUP_STEPS = 6, 2
 
@@ -94,25 +105,53 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3):
 
 
 def render_inputs(torch, b, grid, os_, canvas, c, seed):
-    """Config-#5-like render inputs on the card: weights from random boxes."""
-    from split_vae_torch.ops.stn import paste_interp_weights
+    """Config-#5-like render inputs on the card: weights from random boxes.
+    Returns the six float inputs, the seed tensor and the rows' sample
+    coordinates ys [B,K,H] (which the windowed render reads)."""
+    from split_vae_torch.ops.stn import paste_interp_weights_ys
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     k = grid * grid
     objs = torch.rand((b, k, os_, os_, c + 1), generator=g, device="cuda")
     z_where = torch.randn((b, grid, grid, 4), generator=g, device="cuda")
-    wy, wx, _ = paste_interp_weights(z_where, (canvas, canvas), (os_, os_))
+    wy, wx, _, ys = paste_interp_weights_ys(z_where, (canvas, canvas), (os_, os_))
     z_pres = torch.rand((b, k), generator=g, device="cuda")
     depth_w = torch.sigmoid(-torch.randn((b, k), generator=g, device="cuda")) + 0.5
     bg = torch.rand((b, canvas, canvas, c), generator=g, device="cuda")
     seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int32, device="cuda")
-    return [objs, wy.contiguous(), wx.contiguous(), z_pres, depth_w, bg], seed_t
+    return [objs, wy.contiguous(), wx.contiguous(), z_pres, depth_w, bg], seed_t, ys
+
+
+RENDER_INPUT_NAMES = ("objs", "wy", "wx", "z_pres", "depth_w", "bg")
+
+
+def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed):
+    """Fails unless a render kernel's forward (atol FWD_ATOL) and its six
+    gradients under one random cotangent (GRAD_RTOL, GRAD_ATOL) agree with the
+    plain version's; returns (fwd err, bwd err, the kernel's gradients)."""
+    cot = torch.randn(out_k.shape, generator=torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda")
+    g_k = torch.autograd.grad(out_k, ins_k, cot)
+    g_p = torch.autograd.grad(out_p, ins_p, cot)
+    torch.cuda.synchronize()
+    fwd_err = (out_k - out_p).abs().max().item()
+    if not fwd_err <= FWD_ATOL:
+        fail(f"{what}: forward max |kernel - plain| {fwd_err:.3g} > {FWD_ATOL}")
+    bwd_err = 0.0
+    for name, a, p in zip(RENDER_INPUT_NAMES, g_k, g_p):
+        err = (a - p).abs()
+        excess = (err - (GRAD_ATOL + GRAD_RTOL * p.abs())).max().item()
+        if not excess <= 0:
+            fail(f"{what}: backward d{name} max err {err.max().item():.3g} "
+                 f"beyond rtol {GRAD_RTOL}, atol {GRAD_ATOL}")
+        bwd_err = max(bwd_err, err.max().item())
+    return fwd_err, bwd_err, g_k
 
 
 def compare_kernels(torch, render, shape, noise_scale, seed):
     """Kernel vs plain, forward and the six gradients; returns (fwd err, bwd err)."""
     b, grid, os_, canvas, c = shape
-    args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, seed)
+    args, seed_t, _ = render_inputs(torch, b, grid, os_, canvas, c, seed)
     noise = None
     if noise_scale > 0:
         noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
@@ -120,24 +159,42 @@ def compare_kernels(torch, render, shape, noise_scale, seed):
     ins_p = [a.clone().requires_grad_(True) for a in args]
     out_k = render.fused_paste_render(*ins_k, seed_t, noise_scale)
     out_p = render.render_reference(*ins_p, noise)
-    cot = torch.randn(out_k.shape, generator=torch.Generator(device="cuda").manual_seed(seed),
-                      device="cuda")
-    g_k = torch.autograd.grad(out_k, ins_k, cot)
-    g_p = torch.autograd.grad(out_p, ins_p, cot)
-    torch.cuda.synchronize()
-    fwd_err = (out_k - out_p).abs().max().item()
     what = f"{shape} noise {noise_scale}"
-    if not fwd_err <= FWD_ATOL:
-        fail(f"render forward {what}: max |kernel - plain| {fwd_err:.3g} > {FWD_ATOL}")
-    bwd_err = 0.0
-    for name, a, p in zip(("objs", "wy", "wx", "z_pres", "depth_w", "bg"), g_k, g_p):
-        err = (a - p).abs()
-        excess = (err - (GRAD_ATOL + GRAD_RTOL * p.abs())).max().item()
-        if not excess <= 0:
-            fail(f"render backward {what}: d{name} max err {err.max().item():.3g} "
-                 f"beyond rtol {GRAD_RTOL}, atol {GRAD_ATOL}")
-        bwd_err = max(bwd_err, err.max().item())
+    fwd_err, bwd_err, _ = hold_to_plain(torch, f"render {what}", out_k, out_p, ins_k, ins_p, seed)
     log(f"  {what}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}")
+    return fwd_err, bwd_err
+
+
+def compare_windowed(torch, render, windowed, shape, noise_scale, seed):
+    """Windowed kernel vs its plain version (forward, six gradients), vs the
+    full-canvas kernel on the same inputs and seed (forward atol
+    WINDOWED_VS_FULL_ATOL), and g_wy exactly zero outside the bands; returns
+    (fwd err, bwd err)."""
+    b, grid, os_, canvas, c = shape
+    args, seed_t, ys = render_inputs(torch, b, grid, os_, canvas, c, seed)
+    bands = windowed.compute_bands(ys, os_)
+    noise = None
+    if noise_scale > 0:
+        noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
+    ins_k = [a.clone().requires_grad_(True) for a in args]
+    ins_p = [a.clone().requires_grad_(True) for a in args]
+    out_k = windowed.fused_paste_render_windowed(*ins_k, seed_t, ys, noise_scale)
+    out_p = windowed.render_windowed_reference(*ins_p, bands, noise)
+    what = f"{shape} noise {noise_scale}"
+    fwd_err, bwd_err, g_k = hold_to_plain(torch, f"windowed render {what}", out_k, out_p, ins_k,
+                                          ins_p, seed)
+    full_err = (out_k - render.fused_paste_render(*args, seed_t, noise_scale)).abs().max().item()
+    if not full_err <= WINDOWED_VS_FULL_ATOL:
+        fail(f"windowed render {what}: max |windowed - full-canvas kernel| {full_err:.3g} > "
+             f"{WINDOWED_VS_FULL_ATOL}")
+    outside = ~windowed.band_mask(bands, canvas)
+    stray = int(torch.count_nonzero(g_k[1][outside]).item())
+    if stray:
+        fail(f"windowed render {what}: {stray} non-zero entries of g_wy outside the bands")
+    rows = bands[..., 1].float()
+    log(f"  windowed {what}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}, "
+        f"vs the full-canvas kernel {full_err:.3g}, g_wy zero outside the bands "
+        f"(band rows: mean {rows.mean().item():.2f}, max {int(rows.max().item())} of {canvas})")
     return fwd_err, bwd_err
 
 
@@ -167,9 +224,58 @@ def bounds(shape):
     return out
 
 
+def windowed_bounds(shape, band_rows: int):
+    """``bounds`` for the windowed pair, from this run's bands: ``band_rows``
+    is the sum of the bands' lengths over all B*K cells.
+
+    Bytes: as the full render's, but only the band's rows of wy are read (the
+    backward still writes g_wy in full) and the bands themselves are read.
+    Operations: the kernels' products all run over the band's rows: forward
+    u = wy[band].obj and u.wx^T; the backward recomputes those and adds
+    g_u = g_paste.wx, g_obj = wy^T.g_u, g_wy = g_u.obj^T, g_wx = g_paste^T.u.
+    """
+    b, grid, h, hh, c = shape
+    k, c1, w, ww = grid * grid, c + 1, h, hh
+    cells = b * k
+    img_bytes = 4 * b * hh * ww * c
+    read = 4 * (cells * (h * w * c1 + ww * w + 2 + 2) + band_rows * h) + img_bytes
+    grads = 4 * cells * (h * w * c1 + hh * h + ww * w + 2) + img_bytes
+    fwd_fma = band_rows * c1 * (w * h + ww * w)
+    bwd_fma = fwd_fma + band_rows * c1 * (w * ww + h * w + h * w + ww * w)
+    out = {}
+    for name, nbytes, fma in (("fwd", read + img_bytes, fwd_fma),
+                              ("bwd", read + img_bytes + grads, bwd_fma)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * fma / PEAK_FP32 * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+                     nbytes, 2 * fma)
+    return out
+
+
+def time_windowed(torch, render, windowed, shape, noise_scale):
+    """Times of the windowed pair, its plain version and the full-canvas pair
+    on the same inputs, in turns within one call; also the sum of band rows."""
+    b, grid, os_, canvas, c = shape
+    args, seed_t, ys = render_inputs(torch, b, grid, os_, canvas, c, 11)
+    bands = windowed.compute_bands(ys, os_)
+    noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
+    g = torch.rand((b, canvas, canvas, c), device="cuda")
+    ins = [a.clone().requires_grad_(True) for a in args]
+    out_p = windowed.render_windowed_reference(*ins, bands, noise)
+    return {
+        "full_fwd": cuda_ms(lambda: render._fwd(*args, seed_t, noise_scale)),
+        "fwd": cuda_ms(lambda: windowed._fwd(*args, bands, seed_t, noise_scale)),
+        "full_bwd": cuda_ms(lambda: render._bwd(*args, seed_t, noise_scale, g)),
+        "bwd": cuda_ms(lambda: windowed._bwd(*args, bands, seed_t, noise_scale, g)),
+        "plain_fwd": cuda_ms(lambda: windowed.render_windowed_reference(*args, bands, noise)),
+        "plain_bwd": cuda_ms(lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True)),
+        "bands": cuda_ms(lambda: windowed.compute_bands(ys, os_)),
+        "band_rows": int(bands[..., 1].sum().item()),
+    }
+
+
 def time_render(torch, render, shape, noise_scale):
     b, grid, os_, canvas, c = shape
-    args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 11)
+    args, seed_t, _ = render_inputs(torch, b, grid, os_, canvas, c, 11)
     noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
     g = torch.rand((b, canvas, canvas, c), device="cuda")
     ins = [a.clone().requires_grad_(True) for a in args]
@@ -342,17 +448,42 @@ class RecordingNoise:
         return self.noise.seed()
 
 
-def small_step_check(torch, np, cfg, label):
-    """One small train step on the card (kernels) against the CPU (plain versions).
+def hold_small_step(torch, label, what, names, grads, results):
+    """Card against CPU for one small train step: ``grads`` are the two lists
+    of (clipped) gradients, ``results`` the two (metrics, params after Adam).
 
-    Held: the clipped gradients tensor by tensor (rtol 1e-3, atol 1e-6 max|g|),
-    the step's metrics (rtol 1e-4), and the parameters after Adam (atol 1e-5)
-    wherever the clipped gradient is at least 1e-5. Below that, Adam's first
-    step -lr g / (|g| + 1e-7) turns the summation-order differences of a
-    near-zero gradient (the card's convolutions add in another order than the
-    CPU's, and not the same order from run to run) into update differences of
-    up to lr, so there only the gradient is held.
+    Held: the gradients tensor by tensor (rtol 1e-3, atol 1e-6 max|g|), the
+    step's metrics (rtol 1e-4), and the parameters after Adam (atol 1e-5)
+    wherever the gradient is at least 1e-5. Below that, Adam's first step
+    -lr g / (|g| + 1e-7) turns the summation-order differences of a near-zero
+    gradient (the card's convolutions add in another order than the CPU's, and
+    not the same order from run to run) into update differences of up to lr,
+    so there only the gradient is held.
     """
+    worst_g = 0.0
+    for name, gc, gg in zip(names, *grads):
+        excess = ((gg - gc).abs() - (1e-3 * gc.abs() + 1e-6 * gc.abs().max())).max().item()
+        if not excess <= 0:
+            fail(f"small step {label}: gradient of {name} differs by "
+                 f"{(gg - gc).abs().max().item():.3g} (max |g| {gc.abs().max().item():.3g})")
+        worst_g = max(worst_g, ((gg - gc).abs().max() / gc.abs().max()).item())
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = results
+    for k in m_cpu:
+        if not abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * abs(m_cpu[k]) + 1e-6:
+            fail(f"small step {label}: metric {k} card {m_gpu[k]} vs CPU {m_cpu[k]}")
+    worst = 0.0
+    for name, pc, pg, gc in zip(names, p_cpu, p_gpu, grads[0]):
+        diff = torch.where(gc.abs() >= 1e-5, (pg - pc).abs(), torch.zeros_like(pc))
+        worst = max(worst, diff.max().item())
+        if not worst <= 1e-5:
+            fail(f"small step {label}: {name} after Adam differs by {worst:.3g} > 1e-5")
+    log(f"  small step {label} ({what}): gradients within {worst_g:.3g} max|g|, metrics "
+        f"within rtol 1e-4 of the CPU step, params after Adam within {worst:.3g}")
+
+
+def small_step_check(torch, np, cfg, label, windowed=False):
+    """One small SPAIR-family train step on the card (kernels) against the CPU
+    (plain versions), the same draws replayed; see ``hold_small_step``."""
     from split_vae_torch.core.noise import Noise
     from split_vae_torch.core.state import create_train_state
     from split_vae_torch.models.spair import get_spair_model
@@ -377,60 +508,78 @@ def small_step_check(torch, np, cfg, label):
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
         noise = Noise(torch.Generator(device=dev), replay)
         images = model_inputs(cfg, x.to(dev), noise)
-        out = model(images, True, noise)
+        out = model(images, True, noise, windowed=windowed)
         total, _ = spair_loss(out, images, cfg, 0, training=True)
         g = torch.autograd.grad(total, list(model.parameters()))
         grads.append([t.cpu() for t in clip_by_per_tensor_norm(1.0).update(list(g), ())[0]])
-    names = [n for n, _ in cpu.named_parameters()]
-    worst_g = 0.0
-    for name, gc, gg in zip(names, *grads):
-        excess = ((gg - gc).abs() - (1e-3 * gc.abs() + 1e-6 * gc.abs().max())).max().item()
-        if not excess <= 0:
-            fail(f"small step {label}: gradient of {name} differs by "
-                 f"{(gg - gc).abs().max().item():.3g} (max |g| {gc.abs().max().item():.3g})")
-        worst_g = max(worst_g, ((gg - gc).abs().max() / gc.abs().max()).item())
-
     results = []
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
         state = create_train_state(model, spair_optimizer(cfg.learning_rate), seed=0)
-        state, metrics = make_spair_train_step(cfg)(state, x.to(dev), replay)
+        state, metrics = make_spair_train_step(cfg, windowed_render=windowed)(
+            state, x.to(dev), replay)
         results.append(({k: float(v) for k, v in metrics.items()},
                         [p.detach().cpu() for p in model.parameters()]))
-    (m_cpu, p_cpu), (m_gpu, p_gpu) = results
-    for k in m_cpu:
-        if not abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * abs(m_cpu[k]) + 1e-6:
-            fail(f"small step {label}: metric {k} card {m_gpu[k]} vs CPU {m_cpu[k]}")
-    worst = 0.0
-    for name, pc, pg, gc in zip(names, p_cpu, p_gpu, grads[0]):
-        diff = torch.where(gc.abs() >= 1e-5, (pg - pc).abs(), torch.zeros_like(pc))
-        worst = max(worst, diff.max().item())
-        if not worst <= 1e-5:
-            fail(f"small step {label}: {name} after Adam differs by {worst:.3g} > 1e-5")
-    log(f"  small step {label} (B={cfg.batch_size}, {hw} px, {cfg.object_size}-px objects): "
-        f"clipped gradients within {worst_g:.3g} max|g|, metrics within rtol 1e-4 of the CPU "
-        f"step, params after Adam within {worst:.3g}")
+    hold_small_step(torch, label, f"B={cfg.batch_size}, {hw} px, {cfg.object_size}-px objects",
+                    [n for n, _ in cpu.named_parameters()], grads, results)
 
 
-def run_path(torch, np, name, cfg, render, crop):
-    """A main path at full width: train steps through the kernels with the
-    launch counts set to 0 before and read after, a profile, one eval step.
-    Returns the four launch counts of the train steps."""
+def small_vae_step_check(torch, np, cfg, hw):
+    """One small LGVae train step on the card against the CPU, the same draws
+    replayed; see ``hold_small_step``."""
+    from split_vae_torch.core.noise import Noise
     from split_vae_torch.core.state import create_train_state
-    from split_vae_torch.models.spair import get_spair_model
-    from split_vae_torch.train.optim import spair_optimizer
-    from split_vae_torch.train.steps import make_spair_eval_step, make_spair_train_step
+    from split_vae_torch.models.vae import get_vae_model
+    from split_vae_torch.train.losses import lgvae_loss
+    from split_vae_torch.train.optim import vae_optimizer
+    from split_vae_torch.train.steps import augment, make_vae_train_step, normalize_images
 
-    what = f"{name} ({cfg.model}, {cfg.object_size}-px objects)"
-    model = get_spair_model(cfg, device="cuda")
-    state = create_train_state(model, spair_optimizer(cfg.learning_rate), seed=cfg.seed)
-    train_step = make_spair_train_step(cfg)
-    rng = np.random.RandomState(0)
-    batches = [torch.from_numpy(rng.uniform(0, 1, (cfg.batch_size,) + tuple(cfg.image_size))
-                                .astype(np.float32)).cuda() for _ in range(2)]
-    n_params = sum(p.numel() for p in model.parameters())
+    batch = torch.from_numpy(np.random.RandomState(1).randint(0, 255, (cfg.batch_size, *hw, 3))
+                             .astype(np.uint8))
+    cpu = get_vae_model(cfg, hw, device="cpu")
+    gpu = get_vae_model(cfg, hw, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rec = RecordingNoise(Noise(torch.Generator().manual_seed(2)))
+    with torch.no_grad():
+        cpu(augment(cfg, normalize_images(batch, "tanh"), rec), True, rec)
+    replay = rec.drawn
+
+    grads = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        noise = Noise(torch.Generator(device=dev), replay)
+        images = augment(cfg, normalize_images(batch.to(dev), "tanh"), noise)
+        total, _ = lgvae_loss(model(images, True, noise), images, cfg.beta)
+        grads.append([t.cpu() for t in torch.autograd.grad(total, list(model.parameters()))])
+    results = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        state = create_train_state(model, vae_optimizer(cfg.learning_rate), seed=0)
+        state, metrics = make_vae_train_step(cfg)(state, batch.to(dev), replay)
+        results.append(({k: float(v) for k, v in metrics.items()},
+                        [p.detach().cpu() for p in model.parameters()]))
+    hold_small_step(torch, "LGVae", f"B={cfg.batch_size}, {hw[0]} px, patch {cfg.patch_size}",
+                    [n for n, _ in cpu.named_parameters()], grads, results)
+
+
+KERNELS = ("render_fwd", "render_bwd", "crop_fwd", "crop_bwd", "render_windowed_fwd",
+           "render_windowed_bwd")
+
+
+def reset_launches(render, crop, windowed):
+    for module in (render, crop, windowed):
+        module.fwd_launches = module.bwd_launches = 0
+
+
+def read_launches(render, crop, windowed):
+    return {"render_fwd": render.fwd_launches, "render_bwd": render.bwd_launches,
+            "crop_fwd": crop.fwd_launches, "crop_bwd": crop.bwd_launches,
+            "render_windowed_fwd": windowed.fwd_launches,
+            "render_windowed_bwd": windowed.bwd_launches}
+
+
+def timed_steps(torch, np, name, train_step, state, batches, batch_size):
+    """WARMUP_STEPS + TRAIN_STEPS train steps; returns the state, the losses
+    and the last step's metrics after checking that all is finite."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    render.fwd_launches = render.bwd_launches = crop.fwd_launches = crop.bwd_launches = 0
     losses = []
     for i in range(WARMUP_STEPS):
         state, metrics = train_step(state, batches[i % 2])
@@ -442,28 +591,23 @@ def run_path(torch, np, name, cfg, render, crop):
         losses.append(metrics["total_loss"])
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_STEPS
-    launches = {"render_fwd": render.fwd_launches, "render_bwd": render.bwd_launches,
-                "crop_fwd": crop.fwd_launches, "crop_bwd": crop.bwd_launches}
-    steps = WARMUP_STEPS + TRAIN_STEPS
     losses = [v.item() for v in losses]
     notfinite = int(metrics["notfinite_updates"].item())
-    log(f"{what}: B={cfg.batch_size}, {n_params} params, {steps} steps; losses "
-        f"{losses[0]:.2f} -> {losses[-1]:.2f}; notfinite_updates {notfinite}")
-    log(f"{name}: step {step_s * 1e3:.3f} ms, {cfg.batch_size / step_s:.1f} imgs/s "
+    log(f"{name}: {len(losses)} steps; losses {losses[0]:.2f} -> {losses[-1]:.2f}; "
+        f"notfinite_updates {notfinite}")
+    log(f"{name}: step {step_s * 1e3:.3f} ms, {batch_size / step_s:.1f} imgs/s "
         f"(mean of {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up)")
     if not all(np.isfinite(losses)):
         fail(f"{name}: non-finite loss {losses}")
     if notfinite != 0:
         fail(f"{name}: {notfinite} updates were skipped as non-finite")
-    for kernel, n in launches.items():
-        if n < steps:
-            fail(f"{name}: {kernel} kernel launched {n} times in {steps} steps")
-    log(f"{name}: launches {launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return state, losses
 
-    # Where the step's time goes (after the counts were read).
+
+def log_profile(torch, name, train_step, state, batch):
+    """Where the step's time goes (after the launch counts were read)."""
     n_prof = 3
-    state, wall, busy, families = profile_steps(torch, train_step, state, batches[0], n_prof)
+    state, wall, busy, families = profile_steps(torch, train_step, state, batch, n_prof)
     if busy > 0:
         log(f"{name} profile: {n_prof} steps under torch.profiler, {wall / n_prof * 1e3:.3f} ms "
             f"a step on the host clock; device busy {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
@@ -471,6 +615,44 @@ def run_path(torch, np, name, cfg, render, crop):
             log(f"  {fam}: {t / n_prof * 1e3:.3f} ms a step, {n // n_prof} launches a step")
     else:
         log(f"{name} profile: the profiler recorded no device time")
+    return state
+
+
+def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False):
+    """A SPAIR-family main path at full width: train steps through the kernels
+    with the launch counts set to 0 before and read after, a profile, one eval
+    step. ``windowed_render`` takes the row-windowed render pair, and then the
+    full-canvas pair must not be launched. Returns the launch counts of the
+    train steps and their losses."""
+    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.models.spair import get_spair_model
+    from split_vae_torch.train.optim import spair_optimizer
+    from split_vae_torch.train.steps import make_spair_eval_step, make_spair_train_step
+
+    model = get_spair_model(cfg, device="cuda")
+    state = create_train_state(model, spair_optimizer(cfg.learning_rate), seed=cfg.seed)
+    train_step = make_spair_train_step(cfg, windowed_render=windowed_render)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.uniform(0, 1, (cfg.batch_size,) + tuple(cfg.image_size))
+                                .astype(np.float32)).cuda() for _ in range(2)]
+    log(f"{name} ({cfg.model}, {cfg.object_size}-px objects, "
+        f"{'row-windowed' if windowed_render else 'full-canvas'} render): B={cfg.batch_size}, "
+        f"{sum(p.numel() for p in model.parameters())} params")
+    reset_launches(render, crop, windowed)
+    state, losses = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
+    launches = read_launches(render, crop, windowed)
+    used, unused = ("render_windowed", "render") if windowed_render else ("render",
+                                                                          "render_windowed")
+    for kernel, n in launches.items():
+        if kernel.rsplit("_", 1)[0] == unused:
+            if n != 0:
+                fail(f"{name}: {kernel} kernel launched {n} times on a path that takes the "
+                     f"{used} pair")
+        elif n < len(losses):
+            fail(f"{name}: {kernel} kernel launched {n} times in {len(losses)} steps")
+    log(f"{name}: launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    state = log_profile(torch, name, train_step, state, batches[0])
 
     # One eval step with labels (random counts: the weights are random too).
     labels = torch.from_numpy(rng.randint(0, 7, cfg.batch_size).astype(np.float32)).cuda()
@@ -484,7 +666,46 @@ def run_path(torch, np, name, cfg, render, crop):
     log(f"{name} eval: total_loss {ev['total_loss']:.2f}, count_acc {ev['count_acc']:.4f}, "
         f"MAE test {ev['MAE test']:.4f}, MAPE_nonzero test {ev['MAPE_nonzero test']:.2f}, "
         f"MAPE test {ev['MAPE test']:.4g}")
-    return launches
+    return launches, losses
+
+
+def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
+    """The LGVae main path at full width: train steps on uint8 batches, a
+    profile, one eval step. No hand-written kernel lies on it; the launch
+    counts are read all the same and returned."""
+    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.models.vae import get_vae_model
+    from split_vae_torch.train.optim import vae_optimizer
+    from split_vae_torch.train.steps import make_vae_eval_step, make_vae_train_step
+
+    model = get_vae_model(cfg, hw, device="cuda")
+    state = create_train_state(model, vae_optimizer(cfg.learning_rate), seed=cfg.seed)
+    train_step = make_vae_train_step(cfg)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(0, 255, (cfg.batch_size, *hw, 3)).astype(np.uint8))
+               .cuda() for _ in range(2)]
+    log(f"{name} ({cfg.model}, {hw[0]}x{hw[1]}, patch {cfg.patch_size}, latents "
+        f"{cfg.global_latent_dims}/{cfg.local_latent_dims}, beta {cfg.beta}): "
+        f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
+    reset_launches(render, crop, windowed)
+    state, losses = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
+    launches = read_launches(render, crop, windowed)
+    if any(launches.values()):
+        fail(f"{name}: a SPAIR kernel was launched on the LGVae path: {launches}")
+    log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    state = log_profile(torch, name, train_step, state, batches[0])
+
+    out, ev, images = make_vae_eval_step(cfg, model)(state.generator, batches[1])
+    torch.cuda.synchronize()
+    ev = {k: v.item() for k, v in ev.items()}
+    if not all(np.isfinite(list(ev.values()))) or not all(torch.isfinite(t).all() for t in out):
+        fail(f"{name}: non-finite eval result {ev}")
+    if (tuple(out.x_mean.shape) != (cfg.batch_size, *hw, 3)
+            or tuple(images.shape) != (cfg.batch_size, *hw, 6)):
+        fail(f"{name}: eval x_mean {tuple(out.x_mean.shape)}, images {tuple(images.shape)}")
+    log(f"{name} eval: total_loss {ev['total_loss']:.2f}, x_recon_loss {ev['x_recon_loss']:.2f}, "
+        f"x_hat_recon_loss {ev['x_hat_recon_loss']:.2f}, total_kl_loss {ev['total_kl_loss']:.4f}")
+    return launches, losses
 
 
 def main() -> None:
@@ -497,12 +718,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     from split_vae_torch.core.config import (
+        CONFIG2_IMAGE_HW,
         SpairConfig,
+        config2,
         config5,
         config_bg_spair,
         config_glimpse_spair,
     )
     from split_vae_torch.kernels import build, crop, render
+    from split_vae_torch.kernels import render_windowed as windowed
     from split_vae_torch.train.steps import use_fp32
 
     # Phase 1: the card.
@@ -523,15 +747,21 @@ def main() -> None:
 
     # Phase 3: kernels against their plain versions.
     # Render shapes: B, grid, object size, canvas, colour channels.
-    cfg5_shape, p3_shape = (256, 4, 32, 48, 3), (256, 4, 28, 48, 3)
+    cfg5_shape, p3_shape, ragged_shape = (256, 4, 32, 48, 3), (256, 4, 28, 48, 3), (8, 4, 30, 45, 3)
     log("kernel vs plain (fp32, TF32 off):")
-    errs = {"render_fwd": 0.0, "render_bwd": 0.0, "crop_fwd": 0.0, "crop_bwd": 0.0}
-    for i, (shape, noise) in enumerate(((cfg5_shape, 0.0), (cfg5_shape, 0.01),
-                                        ((8, 4, 30, 45, 3), 0.0), ((8, 4, 30, 45, 3), 0.01),
-                                        (p3_shape, 0.01))):
-        fe, be = compare_kernels(torch, render, shape, noise, seed=i + 1)
-        errs["render_fwd"] = max(errs["render_fwd"], fe)
-        errs["render_bwd"] = max(errs["render_bwd"], be)
+    errs = dict.fromkeys(KERNELS, 0.0)
+
+    def keep(kernel, fwd_err, bwd_err):
+        errs[kernel + "_fwd"] = max(errs[kernel + "_fwd"], fwd_err)
+        errs[kernel + "_bwd"] = max(errs[kernel + "_bwd"], bwd_err)
+
+    render_cases = ((cfg5_shape, 0.0), (cfg5_shape, 0.01), (ragged_shape, 0.0),
+                    (ragged_shape, 0.01), (p3_shape, 0.01))
+    for i, (shape, noise) in enumerate(render_cases):
+        keep("render", *compare_kernels(torch, render, shape, noise, seed=i + 1))
+    for i, (shape, noise) in enumerate(render_cases + ((p3_shape, 0.0),)):
+        keep("render_windowed", *compare_windowed(torch, render, windowed, shape, noise,
+                                                  seed=i + 1))
     # The CPU path draws the same noise field with a numpy twin of the kernels'
     # Philox; the two agree up to the float32 math libraries (log, cos, sqrt).
     seed_t = torch.tensor([12345], dtype=torch.int32, device="cuda")
@@ -543,9 +773,7 @@ def main() -> None:
     # Crop shapes: B, grid, canvas, glimpse size, channels.
     crop_p1, crop_p3 = (256, 4, 48, 32, 3), (256, 4, 48, 28, 3)
     for i, shape in enumerate((crop_p1, crop_p3, (8, 4, 48, 32, 6), (8, 3, 45, 30, 3))):
-        fe, be = compare_crop(torch, crop, shape, seed=i + 1)
-        errs["crop_fwd"] = max(errs["crop_fwd"], fe)
-        errs["crop_bwd"] = max(errs["crop_bwd"], be)
+        keep("crop", *compare_crop(torch, crop, shape, seed=i + 1))
 
     # Phase 4: times, with the main paths' render noise 0.01.
     times, bound = {}, {}
@@ -560,6 +788,22 @@ def main() -> None:
             for name in ("fwd", "bwd"):
                 times["render_" + name] = (t[name], t["plain_" + name], None)
                 bound["render_" + name] = bd[name]
+    for label, shape in (("P4", cfg5_shape), ("28 on 48", p3_shape)):
+        t = time_windowed(torch, render, windowed, shape, 0.01)
+        bd = windowed_bounds(shape, t["band_rows"])
+        cells = shape[0] * shape[1] ** 2
+        log(f"windowed render at {label} {shape}: bands of {t['band_rows'] / cells:.2f} rows a "
+            f"cell of {shape[3]}; compute_bands {t['bands']:.4f} ms")
+        for name in ("fwd", "bwd"):
+            tb, by, nbytes, flops = bd[name]
+            log(f"windowed render {name} at {label}: kernel {t[name]:.4f} ms "
+                f"({t[name] / t['full_' + name]:.3f} of the full-canvas kernel's "
+                f"{t['full_' + name]:.4f} ms in the same turns), plain {t['plain_' + name]:.4f} "
+                f"ms, bound {tb:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        if label == "P4":
+            for name in ("fwd", "bwd"):
+                times["render_windowed_" + name] = (t[name], t["plain_" + name], None)
+                bound["render_windowed_" + name] = bd[name]
     for label, shape in (("P1/P2", crop_p1), ("P3", crop_p3)):
         t, bd = time_crop(torch, crop, shape), crop_bounds(shape)
         for name in ("fwd", "bwd", "bwd_all"):
@@ -576,34 +820,52 @@ def main() -> None:
     small = dict(batch_size=4, latent_size=8, bg_latent_size=8, local_latent_size=8,
                  image_size=(24, 24, 3))
     small_step_check(torch, np, config5(**small, object_size=16), "LG-SPAIR")
+    small_step_check(torch, np, config5(**small, object_size=16), "LG-SPAIR, windowed render",
+                     windowed=True)
     small_step_check(torch, np, SpairConfig(**small, model="bg_spair", object_size=16),
                      "BG-SPAIR")
     small_step_check(torch, np, SpairConfig(**small, model="lg_glimpse_spair", object_size=12,
                                             patch_size=4), "LGGlimpseSPAIR")
-    launches = {}
-    for name, cfg in (("P1", config5()), ("P2", config_bg_spair()),
-                      ("P3", config_glimpse_spair())):
-        launches[name] = run_path(torch, np, name, cfg, render, crop)
+    small_vae_step_check(torch, np, config2(batch_size=4, global_latent_dims=8,
+                                            local_latent_dims=8), (32, 32))
+    launches, losses = {}, {}
+    for name, cfg, windowed_render in (("P1", config5(), False), ("P2", config_bg_spair(), False),
+                                       ("P3", config_glimpse_spair(), False),
+                                       ("P4", config5(), True)):
+        launches[name], losses[name] = run_path(torch, np, name, cfg, render, crop, windowed,
+                                                windowed_render)
         torch.cuda.empty_cache()
+    # P4 is P1 with the other render pair: the same model, batches and draws,
+    # the render seeds included. The first loss differs by the two kernels'
+    # forward difference only; later ones also by what Adam makes of it.
+    log("P1 losses: " + ", ".join(f"{v:.4f}" for v in losses["P1"]))
+    log("P4 losses: " + ", ".join(f"{v:.4f}" for v in losses["P4"]))
+    first = abs(losses["P4"][0] - losses["P1"][0]) / abs(losses["P1"][0])
+    if not first <= 1e-5:
+        fail(f"P4's first loss {losses['P4'][0]} is not P1's {losses['P1'][0]} (rtol 1e-5)")
+    log(f"P4 vs P1: first loss within {first:.3g} relative, last within "
+        f"{abs(losses['P4'][-1] - losses['P1'][-1]) / abs(losses['P1'][-1]):.3g}")
+    launches["P5"], losses["P5"] = run_vae_path(torch, np, "P5", config2(), CONFIG2_IMAGE_HW,
+                                                render, crop, windowed)
+    torch.cuda.empty_cache()
 
     # Phase 6: the record.
-    sources = {"render": "split_vae_torch/csrc/render.cu", "crop": "split_vae_torch/csrc/crop.cu"}
+    pallas, research = "split_vae_tpu/ops/pallas/", "tools/pallas_research/"
     replaces = {
-        "render_fwd": "split_vae_tpu/ops/pallas/render_packed.py:87; "
-                      "split_vae_tpu/ops/pallas/render_fused.py:89",
-        "render_bwd": "split_vae_tpu/ops/pallas/render_packed.py:124; "
-                      "split_vae_tpu/ops/pallas/render_fused.py:119",
-        "crop_fwd": "tools/pallas_research/crop_packed.py:64; "
-                    "tools/pallas_research/crop_fused.py:33",
-        "crop_bwd": "tools/pallas_research/crop_packed.py:80; "
-                    "tools/pallas_research/crop_fused.py:42",
+        "render_fwd": f"{pallas}render_packed.py:87; {pallas}render_fused.py:89",
+        "render_bwd": f"{pallas}render_packed.py:124; {pallas}render_fused.py:119",
+        "crop_fwd": f"{research}crop_packed.py:64; {research}crop_fused.py:33",
+        "crop_bwd": f"{research}crop_packed.py:80; {research}crop_fused.py:42",
+        "render_windowed_fwd": f"{research}render_windowed.py:97",
+        "render_windowed_bwd": f"{research}render_windowed.py:149",
     }
     kernels = []
-    for name in ("render_fwd", "render_bwd", "crop_fwd", "crop_bwd"):
+    for name in KERNELS:
         ms, plain_ms, library_ms = times[name]
         t, by, _, _ = bound[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name.split("_")[0]],
+            "name": name, "route": "cuda",
+            "source": f"split_vae_torch/csrc/{name.rsplit('_', 1)[0]}.cu",
             "replaces": replaces[name],
             "launches": sum(path[name] for path in launches.values()),
             "launches_by_path": {path: counts[name] for path, counts in launches.items()},

@@ -1,10 +1,12 @@
-"""Typed configuration: the JAX package's SpairConfig, field for field.
+"""Typed configuration: the JAX package's VaeConfig and SpairConfig, field for field.
 
-Same fields and defaults as ``split_vae_tpu/core/config.py`` (BaseConfig and
-SpairConfig); the argument parsers come with the CLI. ``config5`` gives
-BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as ``bench.py::measure_spair``
-sets it; ``config_bg_spair`` and ``config_glimpse_spair`` give two more
-full-width configurations at the SpairConfig defaults.
+Same fields and defaults as ``split_vae_tpu/core/config.py`` (BaseConfig,
+VaeConfig and SpairConfig); the argument parsers come with the CLI. ``config5``
+gives BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as
+``bench.py::measure_spair`` sets it, ``config2`` BASELINE config #2 (LGVae on
+CelebA 64x64) as ``bench.py::measure`` sets it; ``config_bg_spair`` and
+``config_glimpse_spair`` give two more full-width configurations at the
+SpairConfig defaults.
 """
 
 from __future__ import annotations
@@ -39,6 +41,35 @@ class BaseConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class VaeConfig(BaseConfig):
+    """vae/main.py:15-31 flag set."""
+
+    viz: bool = False
+    global_latent_dims: int = 128
+    local_latent_dims: int = 128
+    learning_rate: float = 1e-4
+    beta: float = 40.0
+    dataset: str = "svhn"
+    training_steps: int = 1_000_000
+    batch_size: int = 64
+    patch_size: int = 1
+    augmentation: str = "scramble"
+    no_label: bool = False
+    model: str = "lgvae"
+    y_size: int = 30
+    tau: float = 0.4
+    alpha: float = 40.0
+
+    @property
+    def label(self) -> bool:
+        return not self.no_label
+
+    def __post_init__(self):
+        if self.eval_interval is None:
+            self.eval_interval = 10_000
 
 
 @dataclass
@@ -105,6 +136,17 @@ CONFIG5 = dict(
 
 def config5(**overrides) -> SpairConfig:
     return SpairConfig(**{**CONFIG5, **overrides})
+
+
+# BASELINE config #2: LGVae (SPLIT-VAE) on CelebA 64x64 (bench.py:81-82). The
+# image size is the dataset's, not a field of VaeConfig.
+CONFIG2 = dict(model="lgvae", dataset="celeba64", no_label=True, beta=30.0, patch_size=8,
+               batch_size=64)
+CONFIG2_IMAGE_HW = (64, 64)
+
+
+def config2(**overrides) -> VaeConfig:
+    return VaeConfig(**{**CONFIG2, **overrides})
 
 
 def config_bg_spair(**overrides) -> SpairConfig:

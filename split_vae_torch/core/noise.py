@@ -38,6 +38,13 @@ class Noise:
             return self._next(shape)
         return torch.rand(tuple(shape), generator=self.generator, device=self.device)
 
+    def randint(self, high: int, shape) -> torch.Tensor:
+        """Integers in [0, high), int64; replayed ones are taken as they are."""
+        if self._replay is not None:
+            return self._next(shape).to(torch.int64)
+        return torch.randint(0, high, tuple(shape), generator=self.generator,
+                             device=self.device)
+
     def permutation(self, n: int) -> torch.Tensor:
         """A random permutation of range(n), int64; a replayed one is taken as it is."""
         if self._replay is not None:

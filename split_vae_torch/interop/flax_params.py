@@ -1,7 +1,8 @@
 """Flax parameter trees <-> the port's state_dicts.
 
 The JAX package keeps its parameters as a nested dict named by the flax tree
-(``encoder/obj_encoder/Conv_0/kernel``). The port's modules carry the same
+(``encoder/obj_encoder/Conv_0/kernel`` in a SPAIR model,
+``decoder_x/Conv_3/kernel`` in LGVae). The port's modules carry the same
 names, so a leaf maps by path, with two layout rules:
 
 - a conv ``kernel`` is HWIO in flax and a ``weight`` OIHW in torch;

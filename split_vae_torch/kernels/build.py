@@ -24,8 +24,8 @@ import torch
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PACKAGE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build")
-_HEADERS = ("tile_gemm.cuh",)
-NAMES = ("render", "crop")
+_HEADERS = ("tile_gemm.cuh", "philox.cuh")
+NAMES = ("render", "crop", "render_windowed")
 
 
 def _nvcc() -> str:

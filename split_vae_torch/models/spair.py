@@ -6,7 +6,9 @@ Behavioural contract: spair/spair.py:8-106 as the JAX package implements it
 JAX package's working assembly of a model the reference only names).
 ``fused_render=True`` sends the training forward through the fused
 paste+composite render: the CUDA kernel pair for tensors on a GPU, its plain
-version for tensors on the CPU.
+version for tensors on the CPU. ``windowed=True`` at a model call takes the
+row-windowed render pair instead of the full-canvas one (the JAX config has no
+field for it, so it is chosen like ``fused``: by an argument of the call).
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ class _SpairBase(nn.Module):
         self.render_noise_scale = render_noise_scale
 
     def decode_render(self, enc, bg_recon, training: bool, fused: Optional[bool], noise: Noise,
-                      z_what_in: Optional[torch.Tensor] = None, **extra) -> SpairOutput:
+                      z_what_in: Optional[torch.Tensor] = None, windowed: bool = False,
+                      **extra) -> SpairOutput:
         """The decoder and the render over the encoder's first 13 outputs ``enc``.
 
         ``z_what_in`` is what the decoder reads (and the output reports) where
@@ -109,7 +112,7 @@ class _SpairBase(nn.Module):
         if training and fused:
             obj_recon_unnorm, obj_recon_alpha, obj_bbox, x_recon = fused_decode_render(
                 self.decoder, noise, z_what, z_where, z_depth, z_pres, bg_recon, c,
-                self.image_hw, self.render_noise_scale)
+                self.image_hw, self.render_noise_scale, windowed)
             obj_full = None
         else:
             obj_recon_unnorm, obj_recon_alpha, obj_full, obj_bbox = self.decoder(z_what, z_where)
@@ -140,13 +143,13 @@ class SPAIR(_SpairBase):
             self.bg_model = BackgroundModel(image_hw, bg_latent_size, num_channel, device)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise,
-                fused: Optional[bool] = None) -> SpairOutput:
+                fused: Optional[bool] = None, windowed: bool = False) -> SpairOutput:
         enc = self.encoder(inputs, noise)
         if not self.bg:
-            return self.decode_render(enc, 0.0, training, fused, noise)
+            return self.decode_render(enc, 0.0, training, fused, noise, windowed=windowed)
         bg_recon, z_bg, z_bg_mean, z_bg_sig = self.bg_model(inputs, noise)
-        return self.decode_render(enc, bg_recon, training, fused, noise, z_bg=z_bg,
-                                  z_bg_mean=z_bg_mean, z_bg_sig=z_bg_sig)
+        return self.decode_render(enc, bg_recon, training, fused, noise, windowed=windowed,
+                                  z_bg=z_bg, z_bg_mean=z_bg_mean, z_bg_sig=z_bg_sig)
 
 
 class LGSPAIR(_SpairBase):
@@ -175,7 +178,7 @@ class LGSPAIR(_SpairBase):
             dense_local, image_hw, num_channel, local_latent_size, local_latent_size, device)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise,
-                fused: Optional[bool] = None) -> SpairOutput:
+                fused: Optional[bool] = None, windowed: bool = False) -> SpairOutput:
         c = self.num_channel
         x, x_hat = inputs[..., :c], inputs[..., c:]
 
@@ -193,9 +196,9 @@ class LGSPAIR(_SpairBase):
             tiled = z_l[:, None, None, :].expand(b, gh, gw, z_l.shape[-1])
             z_what = torch.cat([z_what, tiled], dim=-1)
         return self.decode_render(enc, bg_recon, training, fused, noise, z_what_in=z_what,
-                                  z_bg=z_bg, z_bg_mean=z_bg_mean, z_bg_sig=z_bg_sig,
-                                  x_hat_recon=x_hat_recon, z_l=z_l, z_l_mean=z_l_mean,
-                                  z_l_sig=z_l_sig)
+                                  windowed=windowed, z_bg=z_bg, z_bg_mean=z_bg_mean,
+                                  z_bg_sig=z_bg_sig, x_hat_recon=x_hat_recon, z_l=z_l,
+                                  z_l_mean=z_l_mean, z_l_sig=z_l_sig)
 
 
 class LGGlimpseSPAIR(_SpairBase):
@@ -219,7 +222,7 @@ class LGGlimpseSPAIR(_SpairBase):
         self.x_hat_decoder = GlimpseDecoder(object_size, num_channel, local_latent_size, device)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise,
-                fused: Optional[bool] = None) -> SpairOutput:
+                fused: Optional[bool] = None, windowed: bool = False) -> SpairOutput:
         c, os_ = self.num_channel, self.object_size
         x = inputs[..., :c]
         z_bg, z_bg_mean, z_bg_sig = self.bg_encoder(x, noise)
@@ -229,8 +232,8 @@ class LGGlimpseSPAIR(_SpairBase):
         b, gh, gw, d = z_l.shape
         x_hat_recon = self.x_hat_decoder(z_l.reshape(b * gh * gw, d))
         x_hat_recon = x_hat_recon.reshape(b, gh * gw, os_, os_, c)
-        return self.decode_render(enc, bg_recon, training, fused, noise, z_bg=z_bg,
-                                  z_bg_mean=z_bg_mean, z_bg_sig=z_bg_sig,
+        return self.decode_render(enc, bg_recon, training, fused, noise, windowed=windowed,
+                                  z_bg=z_bg, z_bg_mean=z_bg_mean, z_bg_sig=z_bg_sig,
                                   x_hat_recon=x_hat_recon, z_l=z_l, z_l_mean=z_l_mean,
                                   z_l_sig=z_l_sig, x_hat=x_hat)
 

@@ -1,4 +1,5 @@
-"""Resize2xConv (split_vae_tpu/nn/pixel_shuffle.py): bilinear 2x resize, then a 3x3 SAME conv.
+"""Resize2xConv (split_vae_tpu/nn/pixel_shuffle.py): bilinear 2x resize, then a SAME conv
+(3x3 as the JAX ``Resize2xConv``, any size as its ``Resize2xConvAny``).
 
 The JAX package folds the resize into the conv's phase kernels to keep the
 upsampled tensor out of TPU memory; the two are the same map. The port
@@ -19,8 +20,9 @@ from split_vae_torch.nn.common import Conv
 
 
 class Resize2xConv(Conv):
-    def __init__(self, in_ch: int, out_ch: int, out_hw: Tuple[int, int], device=None):
-        super().__init__(in_ch, out_ch, (3, 3), padding="SAME", device=device)
+    def __init__(self, in_ch: int, out_ch: int, out_hw: Tuple[int, int], device=None,
+                 kernel_size: Tuple[int, int] = (3, 3)):
+        super().__init__(in_ch, out_ch, kernel_size, padding="SAME", device=device)
         self.out_hw = tuple(out_hw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""SPAIR-family loss (split_vae_tpu/train/losses.py::spair_loss).
+"""Losses (split_vae_tpu/train/losses.py): ``lgvae_loss`` and ``spair_loss``.
 
-spair/trainer.py:136-234 with its annealing schedules, one branch a model;
-metric keys are the reference's.
+vae/trainer.py:120-144 and spair/trainer.py:136-234 with its annealing
+schedules, one branch a model; metric keys are the reference's.
 """
 
 from __future__ import annotations
@@ -11,14 +11,41 @@ from typing import Dict, Tuple
 import torch
 
 from split_vae_torch.models.spair import SpairOutput
+from split_vae_torch.models.vae import LGVaeOutput
 from split_vae_torch.ops.count_prior import z_pres_count_kl
 from split_vae_torch.ops.distributions import (
     bernoulli_xent,
+    discretized_logistic_nll,
+    gaussian_kl,
     gaussian_kl_safe,
     gaussian_kl_two_safe,
     mean_sum,
 )
 from split_vae_torch.train import schedules
+
+
+def _recon_nll(x: torch.Tensor, mean: torch.Tensor, log_scale: torch.Tensor) -> torch.Tensor:
+    """Batch mean of the pixel-summed discretized-logistic NLL (vae/trainer.py:127-128)."""
+    return torch.mean(torch.sum(discretized_logistic_nll(x, mean, log_scale), dim=(1, 2, 3)))
+
+
+def lgvae_loss(out: LGVaeOutput, images: torch.Tensor,
+               beta: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """total = x_recon + x_hat_recon + beta * KL(concat z) (vae/trainer.py:120-144)."""
+    x, x_hat = images[..., :3], images[..., 3:]
+    x_recon_loss = _recon_nll(x, out.x_mean, out.x_log_scale)
+    x_hat_recon_loss = _recon_nll(x_hat, out.x_hat_mean, out.x_hat_log_scale)
+    total_kl = beta * gaussian_kl(torch.cat([out.z_mean_x, out.z_mean_x_hat], dim=1),
+                                  torch.cat([out.z_sig_x, out.z_sig_x_hat], dim=1))
+    total = x_recon_loss + x_hat_recon_loss + total_kl
+    return total, {
+        "x_recon_loss": x_recon_loss,
+        "x_kl_loss": gaussian_kl(out.z_mean_x, out.z_sig_x),
+        "x_hat_recon_loss": x_hat_recon_loss,
+        "x_hat_kl_loss": gaussian_kl(out.z_mean_x_hat, out.z_sig_x_hat),
+        "total_kl_loss": total_kl,
+        "total_loss": total,
+    }
 
 
 def _cat_kl(mean_a, sig_a, mean_b, sig_b) -> torch.Tensor:

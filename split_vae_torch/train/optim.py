@@ -10,7 +10,8 @@ and the state follow optax step for step:
 - ``nan_robust``: skips an update whose gradients or inner updates hold a
   NaN or Inf, leaves the inner state as it was, and counts the skips.
 
-The SPAIR chain is nan_robust(chain(clip 1.0, adam)) (train/loop.py:295-296).
+The SPAIR chain is nan_robust(chain(clip 1.0, adam)) (train/loop.py:295-296),
+the LGVae chain nan_robust(adam) with no clip (train/loop.py:55,65).
 The skip is a select on the device, so a step needs no sync.
 """
 
@@ -113,6 +114,11 @@ def nan_robust(tx: GradientTransformation) -> GradientTransformation:
 def spair_optimizer(learning_rate: float) -> GradientTransformation:
     """Keras Adam(lr, clipnorm=1.0) as the JAX package trains SPAIR (train/loop.py:295-296)."""
     return nan_robust(chain(clip_by_per_tensor_norm(1.0), adam(learning_rate)))
+
+
+def vae_optimizer(learning_rate: float) -> GradientTransformation:
+    """Keras Adam(lr) as the JAX package trains LGVae (train/loop.py:55,65)."""
+    return nan_robust(adam(learning_rate))
 
 
 def notfinite_count(opt_state):

@@ -1,10 +1,13 @@
-"""The SPAIR train and eval steps (split_vae_tpu/train/steps.py).
+"""The train and eval steps (split_vae_tpu/train/steps.py), SPAIR family and LGVae.
 
-A train step: raw batch -> [0, 1] floats -> for lg_spair the patch scramble on
-the device -> forward (the crop and the fused render through their kernels on
-a GPU) -> loss -> backward -> clip, Adam, skip of non-finite updates. fp32
-only: the steps turn TF32 off for matmuls and cuDNN convolutions, which would
-otherwise break parity with the f32 reference.
+A SPAIR train step: raw batch -> [0, 1] floats -> for lg_spair the patch
+scramble on the device -> forward (the crop and the fused render through their
+kernels on a GPU) -> loss -> backward -> clip, Adam, skip of non-finite
+updates. An LGVae train step: uint8 batch -> [-1, 1] floats -> the
+augmentation on the device -> forward -> discretized-logistic loss -> backward
+-> Adam, skip of non-finite updates. fp32 only: the steps turn TF32 off for
+matmuls and cuDNN convolutions, which would otherwise break parity with the
+f32 reference.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.core.state import TrainState
-from split_vae_torch.ops.patches import augment_batch, scramble_shape
+from split_vae_torch.ops.patches import augment_batch, augment_draws
 from split_vae_torch.train import losses
 from split_vae_torch.train.optim import notfinite_count
 
@@ -38,37 +41,94 @@ def model_inputs(config, x: torch.Tensor, noise: Noise) -> torch.Tensor:
     """The model's input: lg_spair reads the image beside its scrambled view."""
     if config.model != "lg_spair":
         return x
-    size = config.patch_size
-    return augment_batch(x, config.augmentation, size,
-                         u=noise.uniform(scramble_shape(x.shape, size)))
+    return augment(config, x, noise)
 
 
-def make_spair_train_step(config) -> Callable:
+def augment(config, x: torch.Tensor, noise: Noise) -> torch.Tensor:
+    """config.augmentation of x, its draws taken from ``noise``."""
+    kind, size = config.augmentation, config.patch_size
+    return augment_batch(x, kind, size, u=augment_draws(kind, x.shape, size, noise))
+
+
+def _require_fp32(config) -> None:
+    if getattr(config, "compute_dtype", "float32") != "float32":
+        raise NotImplementedError("only compute_dtype='float32' is ported yet")
+
+
+def _apply(state: TrainState, total: torch.Tensor, metrics) -> Dict[str, torch.Tensor]:
+    """Backward of ``total``, the optimizer update in place; the step's metrics."""
+    params = state.params
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    state.apply_gradients(grads)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    cnt = notfinite_count(state.opt_state)
+    if cnt is not None:
+        metrics["notfinite_updates"] = cnt.to(torch.float32)
+    return metrics
+
+
+def make_vae_train_step(config) -> Callable:
+    """Returns train_step(state, batch, replay=None) -> (state, metrics) for LGVae.
+
+    Draw order as in the JAX step: the augmentation's draws (k_aug), then the
+    model's samples (k_sample). ``replay`` (tests only) lists them in that
+    order; otherwise they come from ``state.generator``.
+    """
+    _require_fp32(config)
+    if config.model != "lgvae":
+        raise NotImplementedError(f"Model type not ported yet: {config.model}")
+    use_fp32()
+
+    def train_step(state: TrainState, batch: torch.Tensor,
+                   replay: Optional[Sequence[torch.Tensor]] = None):
+        noise = Noise(state.generator, replay)
+        images = augment(config, normalize_images(batch, "tanh"), noise)
+        out = state.model(images, True, noise)
+        total, metrics = losses.lgvae_loss(out, images, config.beta)
+        return state, _apply(state, total, metrics)
+
+    return train_step
+
+
+def make_vae_eval_step(config, model) -> Callable:
+    """Returns eval_step(generator, batch, replay=None) -> (out, metrics, images),
+    under ``torch.no_grad``: training=False, the sampling noise stays on, as in
+    the reference's test steps (vae/trainer.py:199-292)."""
+    use_fp32()
+
+    def eval_step(generator: torch.Generator, batch: torch.Tensor,
+                  replay: Optional[Sequence[torch.Tensor]] = None):
+        with torch.no_grad():
+            noise = Noise(generator, replay)
+            images = augment(config, normalize_images(batch, "tanh"), noise)
+            out = model(images, False, noise)
+            _, metrics = losses.lgvae_loss(out, images, config.beta)
+        return out, metrics, images
+
+    return eval_step
+
+
+def make_spair_train_step(config, windowed_render: bool = False) -> Callable:
     """Returns train_step(state, batch, replay=None) -> (state, metrics).
+
+    ``windowed_render`` sends the fused render through the row-windowed kernel
+    pair (``kernels/render_windowed.py``) instead of the full-canvas one.
 
     ``replay`` (tests only) lists the noise to use in draw order: the
     scramble's uniforms, then the model's draws; otherwise everything is drawn
     from ``state.generator``. Metrics are 0-d tensors on the device.
     """
-    if getattr(config, "compute_dtype", "float32") != "float32":
-        raise NotImplementedError("only compute_dtype='float32' is ported yet")
+    _require_fp32(config)
     use_fp32()
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         noise = Noise(state.generator, replay)
         images = model_inputs(config, normalize_images(batch, "unit"), noise)
-        out = state.model(images, True, noise)
+        out = state.model(images, True, noise, windowed=windowed_render)
         total, metrics = losses.spair_loss(out, images, config, state.step, training=True)
-        params = state.params
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        state.apply_gradients(grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        cnt = notfinite_count(state.opt_state)
-        if cnt is not None:
-            metrics["notfinite_updates"] = cnt.to(torch.float32)
-        return state, metrics
+        return state, _apply(state, total, metrics)
 
     return train_step
 

@@ -1,8 +1,8 @@
 """Parameter conversion (split_vae_torch.interop.flax_params) and the port's
 independence from JAX.
 
-Every leaf of a flax tree of each SPAIR model converts into the port's
-state_dict and back unchanged; a leaf with no counterpart on either side
+Every leaf of a flax tree of each SPAIR model and of LGVae converts into the
+port's state_dict and back unchanged; a leaf with no counterpart on either side
 raises; and no module of the port, nor chip_smoke.py, imports jax, flax,
 optax, the JAX package or its research tools.
 """
@@ -25,9 +25,12 @@ from split_vae_torch.interop.flax_params import (  # noqa: E402
     load_flax_params,
     state_dict_to_flax,
 )
+from split_vae_torch.core.config import config2  # noqa: E402
 from split_vae_torch.models.spair import get_spair_model as torch_model  # noqa: E402
+from split_vae_torch.models.vae import get_vae_model as torch_vae_model  # noqa: E402
 from split_vae_tpu.core.config import SpairConfig  # noqa: E402
 from split_vae_tpu.models.spair import get_spair_model as jax_model  # noqa: E402
+from split_vae_tpu.models.vae import LGVae as JaxLGVae  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(batch_size=2, latent_size=8, bg_latent_size=8, local_latent_size=8,
@@ -120,6 +123,47 @@ def test_family_unmapped_leaves_raise(variant):
         flax_to_state_dict(extra, model)
 
 
+def _lgvae_params(hw):
+    cfg = config2(global_latent_dims=8, local_latent_dims=6)
+    variables = JaxLGVae(cfg.global_latent_dims, cfg.local_latent_dims, hw).init(
+        {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)},
+        jnp.zeros((2, *hw, 6)))
+    return jax.tree.map(np.asarray, variables["params"]), torch_vae_model(cfg, hw, device="cpu")
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (64, 64)])
+def test_lgvae_leaves_convert_and_round_trip(hw):
+    params, model = _lgvae_params(hw)
+    load_flax_params(model, params)
+    sd = model.state_dict()
+    # The 6x6 kernel of the decoder's resize+conv layer keeps the flax name Conv_3.
+    np.testing.assert_array_equal(sd["decoder_x.Conv_3.weight"].numpy(),
+                                  params["decoder_x"]["Conv_3"]["kernel"].transpose(3, 2, 0, 1))
+    assert tuple(sd["decoder_x.Conv_3.weight"].shape) == (6, 32, 6, 6)
+    assert tuple(sd["decoder_x.Dense_0.weight"].shape)[1] == 8 + 6
+    back = dict(_flat(state_dict_to_flax(sd)))
+    want = dict(_flat(params))
+    assert sorted(back) == sorted(want)
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(back[path], leaf, err_msg="/".join(path))
+
+
+@pytest.mark.parametrize("scope", ["encoder_x", "encoder_x_hat", "decoder_x", "decoder_x_hat"])
+def test_lgvae_unmapped_leaves_raise(scope):
+    params, model = _lgvae_params((32, 32))
+    short = {k: v for k, v in params.items() if k != scope}
+    with pytest.raises(KeyError, match=scope):
+        flax_to_state_dict(short, model)
+    extra = {**params, scope: {**params[scope], "Conv_9": {"bias": np.zeros(2, np.float32)}}}
+    with pytest.raises(KeyError, match="Conv_9"):
+        flax_to_state_dict(extra, model)
+    wrong = {**params, scope: {**params[scope],
+                               "Dense_0": {**params[scope]["Dense_0"],
+                                           "bias": np.zeros(3, np.float32)}}}
+    with pytest.raises(ValueError, match="Dense_0"):
+        flax_to_state_dict(wrong, model)
+
+
 def test_unmapped_leaves_raise():
     params, model = _flax_params()
     extra = {**params, "stray": {"Dense_9": {"kernel": np.zeros((2, 2), np.float32)}}}
@@ -152,6 +196,8 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         torch_model(config5(**SMALL))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_vae_model(config2(), (64, 64))
 
 
 def _sources():

@@ -46,7 +46,27 @@ def test_scramble_is_a_permutation_of_patches():
 
 
 def test_no_op_and_unported_kinds():
+    """no_op passes the batch through; every kind of the JAX package is
+    ported, so only an unknown kind raises, as it does there."""
     x = torch.zeros(1, 8, 8, 3)
     assert tp.augment_batch(x, "no_op") is x
-    with pytest.raises(NotImplementedError):
-        tp.augment_batch(x, "blur")
+    with pytest.raises(ValueError, match="Unknown augmentation"):
+        tp.augment_batch(x, "sharpen")
+    with pytest.raises(ValueError, match="Unknown augmentation"):
+        jp.augment_batch(jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 3)), "sharpen")
+
+
+@pytest.mark.parametrize("kind,channels", [("mix_scramble", 6), ("blur", 6),
+                                           ("high_low_pass", 9)])
+def test_ported_kinds_run_from_a_generator(kind, channels):
+    """The kinds that used to raise: shapes as the JAX package's, the image
+    kept in the first channels, the draws taken from the generator."""
+    x = torch.from_numpy(np.random.RandomState(0).rand(3, 16, 16, 3).astype(np.float32))
+    out = tp.augment_batch(x, kind, 2, generator=torch.Generator().manual_seed(1))
+    want = jp.augment_batch(jax.random.PRNGKey(0), jnp.asarray(x.numpy()), kind, 2)
+    assert tuple(out.shape) == tuple(want.shape) == (3, 16, 16, channels)
+    assert torch.equal(out[..., :3], x)
+    assert torch.isfinite(out).all()
+    if kind != "high_low_pass":
+        with pytest.raises(ValueError, match="generator"):
+            tp.augment_batch(x, kind, 2)
