@@ -28,14 +28,19 @@ Phases, each of which must pass:
      on 45-px canvases), with render noise 0 and 0.01. Windowed render: the
      same shapes and noise levels and 28-px objects on 48 px, also against the
      full-canvas kernel on the same inputs and seed (forward atol 3e-6) and
-     with g_wy exactly zero outside the bands. Crop: at 48 -> 32 px and
-     48 -> 28 px (B=256), with 6 channels, and at a ragged shape (9 cells,
-     45 -> 30 px); all three gradients, and the two the model's path asks for.
-     Forward atol 3e-5, gradients rtol 1e-3, atol 2e-4: the limits the JAX
-     package's tests hold its Pallas kernels to (fp32 sums in another order);
-  4. kernel, plain and, for the crop, library times (the one-call einsum) at
-     the shapes of P1/P2/P4 and of P3 (median of CUDA-event timings), and
-     bounds; the windowed pair in turns with the full-canvas pair;
+     with g_wy exactly zero outside the bands. Crop (over the sample
+     coordinates ys, xs): at 48 -> 32 px and 48 -> 28 px (B=256), with 6
+     channels, at a ragged shape (9 cells, 45 -> 30 px) and at 48 -> 32 px
+     with z_where x10 (saturated boxes, coordinates outside the image); the
+     gradients of img, ys and xs, and the two the model's path asks for; two
+     runs of each kernel bit-equal. Forward atol 3e-5, gradients rtol 1e-3,
+     atol 2e-4: the limits the JAX package's tests hold its Pallas kernels
+     to (fp32 sums in another order);
+  4. kernel, plain and, for the crop, two library times (the one-call einsum
+     on prebuilt weights; interp_matrix twice and that einsum) and a sweep of
+     its cells a block, at the shapes of P1/P2/P4 and of P3 (median of
+     CUDA-event timings), and bounds; the windowed pair in turns with the
+     full-canvas pair;
   5. one small train step on the card against the same step on the CPU (plain
      kernels' versions) for LG-SPAIR (full-canvas and windowed render),
      BG-SPAIR, LGGlimpseSPAIR and LGVae, then each main path: train steps with
@@ -67,6 +72,7 @@ FWD_ATOL = 3e-5
 WINDOWED_VS_FULL_ATOL = 3e-6
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-4
 TRAIN_STEPS, WARMUP_STEPS = 6, 2
+SLEEP_CYCLES = 5_000_000  # about 3 ms at the H100's clocks: longer than any run's host time
 
 
 def fail(msg: str) -> None:
@@ -88,7 +94,10 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3):
-    """Median milliseconds of fn() over reps runs, each between two CUDA events."""
+    """Median device milliseconds of fn() over reps runs, each between two
+    CUDA events. A sleep kernel (SLEEP_CYCLES) ahead of each run keeps the
+    card busy while the host enqueues the run's launches, so the time is the
+    device's alone and not the wrappers' host time."""
     import torch
 
     for _ in range(warmup):
@@ -96,6 +105,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3):
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -288,42 +298,55 @@ def time_render(torch, render, shape, noise_scale):
     }
 
 
-def crop_inputs(torch, b, grid, canvas, glimpse, c, seed):
-    """Crop inputs on the card: a random image, weights from random boxes, a cotangent."""
-    from split_vae_torch.ops.stn import crop_interp_weights
+def crop_inputs(torch, b, grid, canvas, glimpse, c, seed, z_scale=1.0):
+    """Crop inputs on the card: a random image, the sample coordinates of
+    random boxes (z_where from N(0, 1) times z_scale: at 10 most boxes
+    saturate and many coordinates fall outside the image), a cotangent."""
+    from split_vae_torch.ops.stn import crop_sample_coords
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     img = torch.rand((b, canvas, canvas, c), generator=g, device="cuda")
-    z_where = torch.randn((b, grid, grid, 4), generator=g, device="cuda")
-    wy, wx, _ = crop_interp_weights(z_where, (canvas, canvas), (glimpse, glimpse))
+    z_where = z_scale * torch.randn((b, grid, grid, 4), generator=g, device="cuda")
+    ys, xs, _ = crop_sample_coords(z_where, (canvas, canvas), (glimpse, glimpse))
     cot = torch.randn((b, grid * grid, glimpse, glimpse, c), generator=g, device="cuda")
-    return img, wy.contiguous(), wx.contiguous(), cot
+    return img, ys.contiguous(), xs.contiguous(), cot
 
 
-def compare_crop(torch, crop, shape, seed):
-    """Crop kernels vs plain: forward, all three gradients, and the backward
-    without g_img (the model's path); returns (fwd err, bwd err)."""
-    img, wy, wx, cot = crop_inputs(torch, *shape, seed)
-    ins_k = [a.clone().requires_grad_(True) for a in (img, wy, wx)]
-    ins_p = [a.clone().requires_grad_(True) for a in (img, wy, wx)]
-    out_k = crop.stn_crop_apply(*ins_k)
-    out_p = crop.crop_reference(*ins_p)
+def compare_crop(torch, crop, shape, seed, z_scale=1.0):
+    """Crop kernels vs the plain version over the same coordinates: forward,
+    all three gradients, and the backward without g_img (the model's path);
+    then two runs of each kernel call must give bit-equal outputs. Returns
+    (fwd err, bwd err)."""
+    img, ys, xs, cot = crop_inputs(torch, *shape, seed, z_scale)
+    ins_k = [a.clone().requires_grad_(True) for a in (img, ys, xs)]
+    ins_p = [a.clone().requires_grad_(True) for a in (img, ys, xs)]
+    out_k = crop.stn_crop_taps(*ins_k)
+    out_p = crop.crop_taps_reference(*ins_p)
     g_k = torch.autograd.grad(out_k, ins_k, cot)
     g_p = torch.autograd.grad(out_p, ins_p, cot)
-    g_k2 = torch.autograd.grad(crop.stn_crop_apply(img, *ins_k[1:]), ins_k[1:], cot)
+    g_k2 = torch.autograd.grad(crop.stn_crop_taps(img, *ins_k[1:]), ins_k[1:], cot)
     torch.cuda.synchronize()
+    what = f"{shape}" + (f", z_where x{z_scale:g}" if z_scale != 1.0 else "")
     fwd_err = (out_k - out_p).abs().max().item()
     if not fwd_err <= FWD_ATOL:
-        fail(f"crop forward {shape}: max |kernel - plain| {fwd_err:.3g} > {FWD_ATOL}")
+        fail(f"crop forward {what}: max |kernel - plain| {fwd_err:.3g} > {FWD_ATOL}")
     bwd_err = 0.0
-    for name, a, p in zip(("img", "wy", "wx", "wy (no g_img)", "wx (no g_img)"),
+    for name, a, p in zip(("img", "ys", "xs", "ys (no g_img)", "xs (no g_img)"),
                           g_k + g_k2, g_p + g_p[1:]):
         err = (a - p).abs()
         if not (err - (GRAD_ATOL + GRAD_RTOL * p.abs())).max().item() <= 0:
-            fail(f"crop backward {shape}: d{name} max err {err.max().item():.3g} "
+            fail(f"crop backward {what}: d{name} max err {err.max().item():.3g} "
                  f"beyond rtol {GRAD_RTOL}, atol {GRAD_ATOL}")
         bwd_err = max(bwd_err, err.max().item())
-    log(f"  crop {shape}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}")
+    calls = {"fwd": lambda: (crop._fwd(img, ys, xs),),
+             "bwd": lambda: crop._bwd(img, ys, xs, cot, need_img=False)[1:],
+             "bwd_all": lambda: crop._bwd(img, ys, xs, cot)}
+    for name, call in calls.items():
+        if not all(torch.equal(a, b) for a, b in zip(call(), call())):
+            fail(f"crop {name} {what}: two runs of the kernel differ")
+    outside = ((ys < 0) | (ys >= shape[2] - 1)).float().mean().item()
+    log(f"  crop {what}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}, "
+        f"repeats bit-equal; {outside:.1%} of row coordinates outside [0, {shape[2] - 1})")
     return fwd_err, bwd_err
 
 
@@ -331,50 +354,77 @@ def crop_bounds(shape):
     """Least times (ms) for the crop's forward, its backward without g_img (as
     the model's path calls it) and its backward with all three gradients.
 
-    Bytes: each input read once, each output written once (fp32). Operations:
-    the dense products, 2 FLOP per multiply-add: wy.img and (wy.img).wx^T
-    forward; g.wx, its product with img (g_wy), wy.img and g^T.(wy.img) (g_wx)
-    backward, and wy^T.(g.wx) where g_img is asked for.
+    Bytes: each input read once, each output written once (fp32): forward
+    img, ys, xs in and the glimpses out; backward g, img, ys, xs in and g_ys,
+    g_xs (and g_img) out. Operations, as the kernels do them: forward 9 FLOP
+    an output (three multiplies, three FMAs); backward 8 FLOP an element of g
+    (four FMAs) and 12 a pixel (four differences, the two weighted pairs, two
+    sums), 8 more an element for g_img (four taps scattered); the sums over
+    rows and columns not counted.
     """
     b, grid, hh, ho, c = shape
     cells, ww, wo = b * grid * grid, hh, ho
-    img, wts, out = 4 * b * hh * ww * c, 4 * cells * (ho * hh + wo * ww), 4 * cells * ho * wo * c
-    fwd_fma = cells * c * (ho * hh * ww + ho * wo * ww)
-    bwd_fma = cells * c * (ho * wo * ww + 2 * ho * hh * ww + wo * ww * ho)
+    img, coords, out = 4 * b * hh * ww * c, 4 * cells * (ho + wo), 4 * cells * ho * wo * c
+    n_pix = cells * ho * wo
+    fwd_ops, bwd_ops = 9 * n_pix * c, n_pix * (12 + 8 * c)
     res = {}
-    for name, nbytes, fma in (("fwd", img + wts + out, fwd_fma),
-                              ("bwd", img + 2 * wts + out, bwd_fma),
-                              ("bwd_all", 2 * img + 2 * wts + out,
-                               bwd_fma + cells * c * hh * ww * ho)):
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * fma / PEAK_FP32 * 1e3
+    for name, nbytes, flops in (("fwd", img + coords + out, fwd_ops),
+                                ("bwd", out + img + 2 * coords, bwd_ops),
+                                ("bwd_all", out + 2 * img + 2 * coords, bwd_ops + 8 * n_pix * c)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
         res[name] = (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
-                     nbytes, 2 * fma)
+                     nbytes, flops)
     return res
 
 
+CELLS_PER_BLOCK_SWEEP = (1, 2, 4, 8, 16)
+
+
 def time_crop(torch, crop, shape):
-    """Kernel, plain and library (one three-operand einsum and its autograd
-    backward) times; "bwd" gives the gradients of wy and wx, "bwd_all" all three."""
-    img, wy, wx, cot = crop_inputs(torch, *shape, 13)
+    """Kernel, plain and two library times; "bwd" gives the gradients of ys
+    and xs (the paths' call), "bwd_all" all three. Library: the one-call
+    einsum on prebuilt weights and its autograd backward (to wy, wx; all
+    three); chain: interp_matrix twice and that einsum, with its autograd
+    backward to ys, xs (to all three), what the step ran before the kernels
+    took coordinates. Also the kernels at each cells-a-block count of
+    CELLS_PER_BLOCK_SWEEP."""
+    img, ys, xs, cot = crop_inputs(torch, *shape, 13)
+    h, w = shape[2], shape[2]
 
-    def library(*ins):
-        return torch.einsum("bkpi,bijc,bkqj->bkpqc", ins[1], ins[0], ins[2])
+    def library(im, wy, wx):
+        return torch.einsum("bkpi,bijc,bkqj->bkpqc", wy, im, wx)
 
-    ins = [a.clone().requires_grad_(True) for a in (img, wy, wx)]
-    out_lib = library(*ins)
-    return {
-        "fwd": cuda_ms(lambda: crop._fwd(img, wy, wx)),
-        "bwd": cuda_ms(lambda: crop._bwd(img, wy, wx, cot, need_img=False)),
-        "bwd_all": cuda_ms(lambda: crop._bwd(img, wy, wx, cot)),
-        "plain_fwd": cuda_ms(lambda: crop.crop_reference(img, wy, wx)),
-        "plain_bwd": cuda_ms(lambda: crop.crop_backward_reference(img, wy, wx, cot, False)),
-        "plain_bwd_all": cuda_ms(lambda: crop.crop_backward_reference(img, wy, wx, cot)),
+    def chain(im, y, x):
+        return library(im, crop.interp_matrix(y, h), crop.interp_matrix(x, w))
+
+    wy, wx = crop.interp_matrix(ys, h), crop.interp_matrix(xs, w)
+    lib_ins = [a.clone().requires_grad_(True) for a in (img, wy, wx)]
+    out_lib = library(*lib_ins)
+    chain_ins = [a.clone().requires_grad_(True) for a in (img, ys, xs)]
+    out_chain = chain(*chain_ins)
+    times = {
+        "fwd": cuda_ms(lambda: crop._fwd(img, ys, xs)),
+        "bwd": cuda_ms(lambda: crop._bwd(img, ys, xs, cot, need_img=False)),
+        "bwd_all": cuda_ms(lambda: crop._bwd(img, ys, xs, cot)),
+        "plain_fwd": cuda_ms(lambda: crop.crop_taps_reference(img, ys, xs)),
+        "plain_bwd": cuda_ms(lambda: crop.crop_taps_backward_reference(img, ys, xs, cot, False)),
+        "plain_bwd_all": cuda_ms(lambda: crop.crop_taps_backward_reference(img, ys, xs, cot)),
         "library_fwd": cuda_ms(lambda: library(img, wy, wx)),
-        "library_bwd": cuda_ms(lambda: torch.autograd.grad(out_lib, ins[1:], cot,
+        "library_bwd": cuda_ms(lambda: torch.autograd.grad(out_lib, lib_ins[1:], cot,
                                                            retain_graph=True)),
-        "library_bwd_all": cuda_ms(lambda: torch.autograd.grad(out_lib, ins, cot,
+        "library_bwd_all": cuda_ms(lambda: torch.autograd.grad(out_lib, lib_ins, cot,
                                                                retain_graph=True)),
+        "chain_fwd": cuda_ms(lambda: chain(img, ys, xs)),
+        "chain_bwd": cuda_ms(lambda: torch.autograd.grad(out_chain, chain_ins[1:], cot,
+                                                         retain_graph=True)),
+        "chain_bwd_all": cuda_ms(lambda: torch.autograd.grad(out_chain, chain_ins, cot,
+                                                             retain_graph=True)),
     }
+    times["sweep"] = {
+        n: (cuda_ms(lambda: crop._fwd(img, ys, xs, cells_per_block=n)),
+            cuda_ms(lambda: crop._bwd(img, ys, xs, cot, need_img=False, cells_per_block=n)))
+        for n in CELLS_PER_BLOCK_SWEEP}
+    return times
 
 
 def kernel_family(name: str) -> str:
@@ -648,7 +698,7 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
             if n != 0:
                 fail(f"{name}: {kernel} kernel launched {n} times on a path that takes the "
                      f"{used} pair")
-        elif n < len(losses):
+        elif n < len(losses) or (kernel.startswith("crop") and n != len(losses)):
             fail(f"{name}: {kernel} kernel launched {n} times in {len(losses)} steps")
     log(f"{name}: launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -741,9 +791,12 @@ def main() -> None:
         + ", ".join(os.path.relpath(lib, HERE) for lib in libs.values()))
     for lib in libs.values():
         with open(lib[:-3] + ".log") as f:
+            entry = ""
             for line in f:
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+                if "Compiling entry function" in line:
+                    entry = line.split("'")[1]
+                elif "registers" in line or "spill" in line:
+                    log(f"  ptxas: {entry}: {line.strip()}")
 
     # Phase 3: kernels against their plain versions.
     # Render shapes: B, grid, object size, canvas, colour channels.
@@ -774,9 +827,10 @@ def main() -> None:
     crop_p1, crop_p3 = (256, 4, 48, 32, 3), (256, 4, 48, 28, 3)
     for i, shape in enumerate((crop_p1, crop_p3, (8, 4, 48, 32, 6), (8, 3, 45, 30, 3))):
         keep("crop", *compare_crop(torch, crop, shape, seed=i + 1))
+    keep("crop", *compare_crop(torch, crop, crop_p1, seed=5, z_scale=10.0))
 
     # Phase 4: times, with the main paths' render noise 0.01.
-    times, bound = {}, {}
+    times, bound, chain_ms = {}, {}, {}
     for label, shape in (("P1/P2", cfg5_shape), ("P3", p3_shape)):
         t, bd = time_render(torch, render, shape, 0.01), bounds(shape)
         for name in ("fwd", "bwd"):
@@ -808,12 +862,18 @@ def main() -> None:
         t, bd = time_crop(torch, crop, shape), crop_bounds(shape)
         for name in ("fwd", "bwd", "bwd_all"):
             tb, by, nbytes, flops = bd[name]
-            log(f"crop {name} at {label} {shape}: kernel {t[name]:.4f} ms, plain "
-                f"{t['plain_' + name]:.4f} ms, library {t['library_' + name]:.4f} ms, bound "
-                f"{tb:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            log(f"crop {name} at {label} {shape}: kernel {t[name]:.4f} ms ({tb / t[name]:.3f} "
+                f"of the bound), plain {t['plain_' + name]:.4f} ms, library (einsum on prebuilt "
+                f"weights) {t['library_' + name]:.4f} ms, library chain (interp_matrix x2 + "
+                f"einsum) {t['chain_' + name]:.4f} ms, bound {tb:.4f} ms by {by} "
+                f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP)")
+        log(f"crop cells a block at {label} (forward / backward ms; the wrapper takes "
+            f"{crop.CELLS_PER_BLOCK_FWD} / {crop.CELLS_PER_BLOCK_BWD}): " + ", ".join(
+                f"{n}: {f:.4f} / {b:.4f}" for n, (f, b) in t["sweep"].items()))
         if label == "P1/P2":
             for name in ("fwd", "bwd"):  # "bwd": without g_img, as the paths call it
                 times["crop_" + name] = (t[name], t["plain_" + name], t["library_" + name])
+                chain_ms["crop_" + name] = t["chain_" + name]
                 bound["crop_" + name] = bd[name]
 
     # Phase 5: small steps against the CPU, then the main paths.
@@ -871,6 +931,7 @@ def main() -> None:
             "launches_by_path": {path: counts[name] for path, counts in launches.items()},
             "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": t, "bound_by": by, "library_ms": library_ms,
+            "library_chain_ms": chain_ms.get(name),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,9 @@ The SPAIR affine is axis-aligned, so bilinear sampling factorizes into two
 1-D interpolations: out[p, q] = sum_{i,j} Wy[p, i] * Wx[q, j] * img[i, j].
 ``Wy`` and ``Wx`` are banded interpolation matrices with the reference's
 clipping semantics (spair/utils.py:229-246): samples outside the image net to
-zero. Geometry stays f32.
+zero. Geometry stays f32. The crop hands its sample coordinates to
+``kernels/crop.py``, which gathers the two taps of each row and column; the
+paste keeps the dense matrices.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Tuple
 
 import torch
 
-from split_vae_torch.kernels.crop import stn_crop_apply
+from split_vae_torch.kernels.crop import interp_matrix as _interp_matrix
+from split_vae_torch.kernels.crop import stn_crop_taps
 
 DEFAULT_CELL_RATIO = (2.0 * 12.0) / 48.0
 
@@ -57,20 +60,6 @@ def zwhere_to_bbox(sx, sy, tx, ty) -> torch.Tensor:
                         cy + box_h / 2.0, cx + box_w / 2.0], dim=-1)
 
 
-def _interp_matrix(coords: torch.Tensor, in_size: int) -> torch.Tensor:
-    """Bilinear weight rows [..., n_out, in_size] for sample positions coords [..., n_out]."""
-    x0 = torch.floor(coords)
-    x1 = x0 + 1.0
-    x0c = torch.clamp(x0, 0.0, in_size - 1.0)
-    x1c = torch.clamp(x1, 0.0, in_size - 1.0)
-    w0 = x1c - coords
-    w1 = coords - x0c
-    idx = torch.arange(in_size, device=coords.device)
-    one_hot0 = (x0c.long()[..., None] == idx).to(coords.dtype)
-    one_hot1 = (x1c.long()[..., None] == idx).to(coords.dtype)
-    return w0[..., None] * one_hot0 + w1[..., None] * one_hot1
-
-
 def _sample_coords(scale, trans, out_size: int, in_size: int) -> torch.Tensor:
     """Per-(batch, cell) 1-D sample coordinates in input pixel space."""
     grid = torch.linspace(-1.0, 1.0, out_size, device=scale.device)
@@ -78,15 +67,21 @@ def _sample_coords(scale, trans, out_size: int, in_size: int) -> torch.Tensor:
     return 0.5 * (pos + 1.0) * (in_size - 1)
 
 
-def crop_interp_weights(z_where: torch.Tensor, in_hw: Tuple[int, int],
-                        out_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO):
-    """Weights of the crop transform: (wy [B,K,ho,H], wx [B,K,wo,W], bbox [B,K,4])."""
+def crop_sample_coords(z_where: torch.Tensor, in_hw: Tuple[int, int],
+                       out_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO):
+    """Sample coordinates of the crop: (ys [B,K,ho], xs [B,K,wo], bbox [B,K,4])."""
     h_in, w_in = in_hw
     ho, wo = out_hw
     sx, sy, tx, ty = zwhere_to_params(z_where, cell_ratio)
-    wx = _interp_matrix(_sample_coords(sx, tx, wo, w_in), w_in)
-    wy = _interp_matrix(_sample_coords(sy, ty, ho, h_in), h_in)
-    return wy, wx, zwhere_to_bbox(sx, sy, tx, ty)
+    return (_sample_coords(sy, ty, ho, h_in), _sample_coords(sx, tx, wo, w_in),
+            zwhere_to_bbox(sx, sy, tx, ty))
+
+
+def crop_interp_weights(z_where: torch.Tensor, in_hw: Tuple[int, int],
+                        out_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO):
+    """Weights of the crop transform: (wy [B,K,ho,H], wx [B,K,wo,W], bbox [B,K,4])."""
+    ys, xs, bbox = crop_sample_coords(z_where, in_hw, out_hw, cell_ratio)
+    return _interp_matrix(ys, in_hw[0]), _interp_matrix(xs, in_hw[1]), bbox
 
 
 def stn_crop(img: torch.Tensor, z_where: torch.Tensor, out_hw: Tuple[int, int],
@@ -94,11 +89,11 @@ def stn_crop(img: torch.Tensor, z_where: torch.Tensor, out_hw: Tuple[int, int],
     """Crop per-cell glimpses: img [B,H,W,C], z_where [B,gh,gw,4] ->
     (glimpses [B,K,ho,wo,C], bbox [B,K,4]).
 
-    The chain z_where -> wy, wx stays in autograd; the two products go through
-    ``kernels/crop.py`` (the CUDA kernel pair on a GPU).
+    The chain z_where -> ys, xs stays in autograd; the crop goes through
+    ``kernels/crop.py::stn_crop_taps`` (the CUDA kernel pair on a GPU).
     """
-    wy, wx, bbox = crop_interp_weights(z_where, img.shape[1:3], out_hw, cell_ratio)
-    return stn_crop_apply(img, wy, wx), bbox
+    ys, xs, bbox = crop_sample_coords(z_where, img.shape[1:3], out_hw, cell_ratio)
+    return stn_crop_taps(img, ys, xs), bbox
 
 
 def paste_interp_weights(z_where: torch.Tensor, out_hw: Tuple[int, int],

@@ -3,8 +3,8 @@ independence from JAX.
 
 Every leaf of a flax tree of each SPAIR model and of LGVae converts into the
 port's state_dict and back unchanged; a leaf with no counterpart on either side
-raises; and no module of the port, nor chip_smoke.py, imports jax, flax,
-optax, the JAX package or its research tools.
+raises; and no module of the port, nor chip_smoke.py or crop_layer_turns.py,
+imports jax, flax, optax, the JAX package or its research tools.
 """
 
 import ast
@@ -206,6 +206,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "crop_layer_turns.py")
 
 
 @pytest.mark.parametrize("banned", ["jax", "flax", "optax", "split_vae_tpu", "tools"])
