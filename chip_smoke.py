@@ -24,23 +24,30 @@ Phases, each of which must pass:
   2. build the kernels from split_vae_torch/csrc (one nvcc a source, side by
      side, sm_90a), timed;
   3. each kernel against its plain PyTorch version on the card (TF32 off).
-     Render: at the config-#5 shapes and at an unaligned shape (30-px objects
-     on 45-px canvases), with render noise 0 and 0.01. Windowed render: the
-     same shapes and noise levels and 28-px objects on 48 px, also against the
-     full-canvas kernel on the same inputs and seed (forward atol 3e-6) and
-     with g_wy exactly zero outside the bands. Crop (over the sample
-     coordinates ys, xs): at 48 -> 32 px and 48 -> 28 px (B=256), with 6
-     channels, at a ragged shape (9 cells, 45 -> 30 px) and at 48 -> 32 px
-     with z_where x10 (saturated boxes, coordinates outside the image); the
-     gradients of img, ys and xs, and the two the model's path asks for; two
-     runs of each kernel bit-equal. Forward atol 3e-5, gradients rtol 1e-3,
-     atol 2e-4: the limits the JAX package's tests hold its Pallas kernels
-     to (fp32 sums in another order);
-  4. kernel, plain and, for the crop, two library times (the one-call einsum
-     on prebuilt weights; interp_matrix twice and that einsum) and a sweep of
-     its cells a block, at the shapes of P1/P2/P4 and of P3 (median of
-     CUDA-event timings), and bounds; the windowed pair in turns with the
-     full-canvas pair;
+     Render (over the paste's sample coordinates ys, xs, against
+     render_taps_reference): at the config-#5 shapes and at an unaligned
+     shape (30-px objects on 45-px canvases), with render noise 0 and 0.01, at
+     28-px objects on 48 px, at config #5 with z_where x10 (saturated boxes,
+     coordinates far outside the object) and with one colour channel; the six
+     gradients (objs, ys, xs, z_pres, depth_w, bg); two runs of each kernel
+     bit-equal. Windowed render (over the dense weights built from the same
+     coordinates): the same shapes and noise levels and 28-px objects on 48
+     px, also against the full-canvas kernel on the same inputs and seed
+     (forward atol 3e-6) and with g_wy exactly zero outside the bands. Crop
+     (over the sample coordinates ys, xs): at 48 -> 32 px and 48 -> 28 px
+     (B=256), with 6 channels, at a ragged shape (9 cells, 45 -> 30 px) and
+     at 48 -> 32 px with z_where x10; the gradients of img, ys and xs, and the
+     two the model's path asks for; two runs of each kernel bit-equal.
+     Forward atol 3e-5, gradients rtol 1e-3, atol 2e-4: the limits the JAX
+     package's tests hold its Pallas kernels to (fp32 sums in another order);
+  4. kernel and plain times at the shapes of P1/P2/P4 and of P3 (median of
+     CUDA-event timings on the device alone) and bounds: the render with a
+     sweep of its rows a block (forward) and cells a block (backward) and the
+     render_noise kernel's time beside its three-term bound (bytes, FP32
+     operations, the Philox noise); the windowed pair in turns with the
+     full-canvas pair; the crop with two library times (the one-call einsum on
+     prebuilt weights; interp_matrix twice and that einsum) and a sweep of its
+     cells a block;
   5. one small train step on the card against the same step on the CPU (plain
      kernels' versions) for LG-SPAIR (full-canvas and windowed render),
      BG-SPAIR, LGGlimpseSPAIR and LGVae, then each main path: train steps with
@@ -68,6 +75,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+# Lane instructions of one csrc/philox.cuh::normal_at (Philox-4x32-10 and
+# Box-Muller) on its fast path: 111 in the sm_90a SASS of render.cu's
+# render_noise_kernel (cuobjdump -sass; from the first Philox multiply to the
+# last multiply of the normal, without the cosf and sqrtf slow paths that
+# arguments below 105615 and normal inputs never take, and without the
+# kernel's own index, load and store code): 20 FFMA, 19 LOP3, 17 IMAD (14
+# IMAD.WIDE), 8 FMUL, 1 MUFU.RSQ and the rest. Integer multiplies, conversions
+# and MUFU issue at a fraction of the FP32 rate, so the bound below, one
+# instruction a lane a clock, is a floor the card cannot reach.
+NORMAL_INSTRUCTIONS = 111
 FWD_ATOL = 3e-5
 WINDOWED_VS_FULL_ATOL = 3e-6
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-4
@@ -114,28 +131,37 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3):
     return statistics.median(times)
 
 
-def render_inputs(torch, b, grid, os_, canvas, c, seed):
-    """Config-#5-like render inputs on the card: weights from random boxes.
-    Returns the six float inputs, the seed tensor and the rows' sample
-    coordinates ys [B,K,H] (which the windowed render reads)."""
-    from split_vae_torch.ops.stn import paste_interp_weights_ys
+def render_inputs(torch, b, grid, os_, canvas, c, seed, z_scale=1.0):
+    """Config-#5-like render inputs on the card from random boxes (z_where
+    from N(0, 1) times z_scale: at 10 most boxes saturate and many
+    coordinates fall outside the object). Returns the full-canvas pair's six
+    inputs (objs, ys, xs, z_pres, depth_w, bg: the paste's sample coordinates),
+    the dense ones the row-windowed pair takes (objs, wy, wx, ...: the
+    interpolation matrices built from ys, xs) and the seed tensor."""
+    from split_vae_torch.kernels.crop import interp_matrix
+    from split_vae_torch.ops.stn import paste_sample_coords
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     k = grid * grid
     objs = torch.rand((b, k, os_, os_, c + 1), generator=g, device="cuda")
-    z_where = torch.randn((b, grid, grid, 4), generator=g, device="cuda")
-    wy, wx, _, ys = paste_interp_weights_ys(z_where, (canvas, canvas), (os_, os_))
+    z_where = z_scale * torch.randn((b, grid, grid, 4), generator=g, device="cuda")
+    ys, xs, _ = paste_sample_coords(z_where, (canvas, canvas), (os_, os_))
     z_pres = torch.rand((b, k), generator=g, device="cuda")
     depth_w = torch.sigmoid(-torch.randn((b, k), generator=g, device="cuda")) + 0.5
     bg = torch.rand((b, canvas, canvas, c), generator=g, device="cuda")
     seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int32, device="cuda")
-    return [objs, wy.contiguous(), wx.contiguous(), z_pres, depth_w, bg], seed_t, ys
+    ys, xs = ys.contiguous(), xs.contiguous()
+    taps = [objs, ys, xs, z_pres, depth_w, bg]
+    dense = [objs, interp_matrix(ys, os_).contiguous(), interp_matrix(xs, os_).contiguous(),
+             z_pres, depth_w, bg]
+    return taps, dense, seed_t
 
 
-RENDER_INPUT_NAMES = ("objs", "wy", "wx", "z_pres", "depth_w", "bg")
+TAPS_INPUT_NAMES = ("objs", "ys", "xs", "z_pres", "depth_w", "bg")
+DENSE_INPUT_NAMES = ("objs", "wy", "wx", "z_pres", "depth_w", "bg")
 
 
-def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed):
+def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed, names):
     """Fails unless a render kernel's forward (atol FWD_ATOL) and its six
     gradients under one random cotangent (GRAD_RTOL, GRAD_ATOL) agree with the
     plain version's; returns (fwd err, bwd err, the kernel's gradients)."""
@@ -148,7 +174,7 @@ def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed):
     if not fwd_err <= FWD_ATOL:
         fail(f"{what}: forward max |kernel - plain| {fwd_err:.3g} > {FWD_ATOL}")
     bwd_err = 0.0
-    for name, a, p in zip(RENDER_INPUT_NAMES, g_k, g_p):
+    for name, a, p in zip(names, g_k, g_p):
         err = (a - p).abs()
         excess = (err - (GRAD_ATOL + GRAD_RTOL * p.abs())).max().item()
         if not excess <= 0:
@@ -158,20 +184,36 @@ def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed):
     return fwd_err, bwd_err, g_k
 
 
-def compare_kernels(torch, render, shape, noise_scale, seed):
-    """Kernel vs plain, forward and the six gradients; returns (fwd err, bwd err)."""
+def compare_kernels(torch, render, shape, noise_scale, seed, z_scale=1.0):
+    """Kernel pair vs ``render_taps_reference``: forward and the six
+    gradients (objs, ys, xs, z_pres, depth_w, bg); then two runs of each
+    kernel must give bit-equal outputs. Returns (fwd err, bwd err)."""
     b, grid, os_, canvas, c = shape
-    args, seed_t, _ = render_inputs(torch, b, grid, os_, canvas, c, seed)
+    args, _, seed_t = render_inputs(torch, b, grid, os_, canvas, c, seed, z_scale)
     noise = None
     if noise_scale > 0:
         noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
     ins_k = [a.clone().requires_grad_(True) for a in args]
     ins_p = [a.clone().requires_grad_(True) for a in args]
     out_k = render.fused_paste_render(*ins_k, seed_t, noise_scale)
-    out_p = render.render_reference(*ins_p, noise)
-    what = f"{shape} noise {noise_scale}"
-    fwd_err, bwd_err, _ = hold_to_plain(torch, f"render {what}", out_k, out_p, ins_k, ins_p, seed)
-    log(f"  {what}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}")
+    out_p = render.render_taps_reference(*ins_p, noise)
+    what = f"{shape} noise {noise_scale}" + (f", z_where x{z_scale:g}" if z_scale != 1.0 else "")
+    fwd_err, bwd_err, _ = hold_to_plain(torch, f"render {what}", out_k, out_p, ins_k, ins_p, seed,
+                                        TAPS_INPUT_NAMES)
+    g = torch.randn((b, canvas, canvas, c), generator=torch.Generator(device="cuda")
+                    .manual_seed(seed), device="cuda")
+    _, sums = render._fwd(*args, seed_t, noise_scale)
+    calls = {"fwd": lambda: render._fwd(*args, seed_t, noise_scale),
+             "bwd": lambda: render._bwd(*args, seed_t, noise_scale, sums, g)}
+    for name, call in calls.items():
+        if not all(torch.equal(x, y) for x, y in zip(call(), call())):
+            fail(f"render {name} {what}: two runs of the kernel differ")
+    ys, xs = args[1], args[2]
+    outside = [((u < 0) | (u >= os_ - 1)).float().mean().item() for u in (ys, xs)]
+    biggest = max(ys.abs().max().item(), xs.abs().max().item())
+    log(f"  {what}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}, repeats "
+        f"bit-equal; {outside[0]:.1%} of row and {outside[1]:.1%} of column coordinates "
+        f"outside [0, {os_ - 1}), max |coordinate| {biggest:.3g}")
     return fwd_err, bwd_err
 
 
@@ -181,7 +223,8 @@ def compare_windowed(torch, render, windowed, shape, noise_scale, seed):
     WINDOWED_VS_FULL_ATOL), and g_wy exactly zero outside the bands; returns
     (fwd err, bwd err)."""
     b, grid, os_, canvas, c = shape
-    args, seed_t, ys = render_inputs(torch, b, grid, os_, canvas, c, seed)
+    taps, args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, seed)
+    ys = taps[1]
     bands = windowed.compute_bands(ys, os_)
     noise = None
     if noise_scale > 0:
@@ -192,8 +235,8 @@ def compare_windowed(torch, render, windowed, shape, noise_scale, seed):
     out_p = windowed.render_windowed_reference(*ins_p, bands, noise)
     what = f"{shape} noise {noise_scale}"
     fwd_err, bwd_err, g_k = hold_to_plain(torch, f"windowed render {what}", out_k, out_p, ins_k,
-                                          ins_p, seed)
-    full_err = (out_k - render.fused_paste_render(*args, seed_t, noise_scale)).abs().max().item()
+                                          ins_p, seed, DENSE_INPUT_NAMES)
+    full_err = (out_k - render.fused_paste_render(*taps, seed_t, noise_scale)).abs().max().item()
     if not full_err <= WINDOWED_VS_FULL_ATOL:
         fail(f"windowed render {what}: max |windowed - full-canvas kernel| {full_err:.3g} > "
              f"{WINDOWED_VS_FULL_ATOL}")
@@ -208,38 +251,59 @@ def compare_windowed(torch, render, windowed, shape, noise_scale, seed):
     return fwd_err, bwd_err
 
 
-def bounds(shape):
-    """Least times (ms) for the forward and backward kernels at this shape.
+def bounds(shape, ys, xs, noise_scale):
+    """Least times (ms) for the forward and backward kernels at this shape and
+    on these coordinates: the largest of three terms.
 
-    Bytes: each input read once, each output written once (fp32). Operations:
-    the dense products the kernels do, 2 FLOP per multiply-add; the Philox
-    noise and the elementwise composite are not counted.
+    Bytes: each input read once, each output written once (fp32). Forward:
+    objs, ys, xs, z_pres, depth_w, bg in; out and the sums (C+2 planes) out.
+    Backward: those inputs, the sums and g in; g_objs, g_ys, g_xs, g_zp, g_wd,
+    g_bg out.
+    Operations, as the kernels do them and as this run's boxes need them
+    (``in_box``: pixel-cells whose row and column taps both lie in the
+    object): the paste 9 FLOP a channel (three products, three FMAs) in the
+    box; the composite 7 + 6C a pixel-cell; backward also the coordinates'
+    parts (10 a channel), the gather of g_obj (8 a channel) and 12 + 8C a
+    pixel-cell for the composite's gradient.
+    Noise: B*K*C*H*W Philox normals a call (each kernel draws each once, at
+    noise_scale > 0), NORMAL_INSTRUCTIONS lane instructions each, at one
+    instruction a lane a clock on 132 SMs x 128 lanes at 1.98 GHz
+    (PEAK_FP32 / 2).
+    Returns {"fwd"/"bwd": (ms, by, bytes, FLOP, term)}: ``by`` is "bytes"
+    or "operations" (the noise counts as operations), ``term`` names the
+    largest of "bytes", "FP32 operations", "noise".
     """
     b, grid, h, hh, c = shape
     k, c1, w, ww = grid * grid, c + 1, h, hh
     cells = b * k
-    in_bytes = 4 * (cells * (h * w * c1 + hh * h + ww * w + 2) + b * hh * ww * c)
-    img_bytes = 4 * b * hh * ww * c
-    fwd_fma = cells * (c1 * h * ww * w + c1 * hh * ww * h)
-    # The backward recomputes the two paste products, then gp.Wx, dWy, dobj,
-    # Wy.obj and dWx: five more products per cell.
-    bwd_fma = fwd_fma + cells * (c1 * hh * w * ww + c1 * hh * h * ww + c1 * h * w * hh
-                                 + c1 * hh * w * h + ww * w * c1 * hh)
+    rows_in = ((ys >= 0) & (ys < h - 1)).sum(-1)
+    cols_in = ((xs >= 0) & (xs < w - 1)).sum(-1)
+    in_box = int((rows_in * cols_in).sum().item())
+    px_cells = cells * hh * ww
+    ins = 4 * (cells * (h * w * c1 + hh + ww + 2) + b * hh * ww * c)  # and the gradients
+    sums_g = 4 * b * hh * ww * (c + 2 + c)  # forward: out and sums; backward: sums and g
+    fwd_ops = in_box * 9 * c1 + px_cells * (7 + 6 * c)
+    bwd_ops = in_box * (9 + 10 + 8) * c1 + px_cells * (12 + 8 * c)
+    normals = px_cells * c if noise_scale > 0 else 0
+    t_noise = normals * NORMAL_INSTRUCTIONS / (PEAK_FP32 / 2) * 1e3
     out = {}
-    for name, nbytes, fma in (("fwd", in_bytes + img_bytes, fwd_fma),
-                              ("bwd", 2 * in_bytes + img_bytes, bwd_fma)):
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * fma / PEAK_FP32 * 1e3
-        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
-                     nbytes, 2 * fma)
+    for name, nbytes, flops in (("fwd", ins + sums_g, fwd_ops), ("bwd", 2 * ins + sums_g, bwd_ops)):
+        terms = {"bytes": nbytes / PEAK_BYTES * 1e3, "FP32 operations": flops / PEAK_FP32 * 1e3,
+                 "noise": t_noise}
+        term = max(terms, key=terms.get)
+        out[name] = (terms[term], "bytes" if term == "bytes" else "operations", nbytes, flops,
+                     term)
     return out
 
 
 def windowed_bounds(shape, band_rows: int):
-    """``bounds`` for the windowed pair, from this run's bands: ``band_rows``
-    is the sum of the bands' lengths over all B*K cells.
+    """Least times (ms) for the windowed pair, from this run's bands:
+    ``band_rows`` is the sum of the bands' lengths over all B*K cells.
 
-    Bytes: as the full render's, but only the band's rows of wy are read (the
-    backward still writes g_wy in full) and the bands themselves are read.
+    Bytes: each input read once, each output written once (fp32): objs, the
+    band's rows of wy, wx, z_pres, depth_w, the bands and bg in, the canvas
+    out; the backward also reads g and writes gradients shaped as the inputs
+    (g_wy in full). The Philox noise is not counted here.
     Operations: the kernels' products all run over the band's rows: forward
     u = wy[band].obj and u.wx^T; the backward recomputes those and adds
     g_u = g_paste.wx, g_obj = wy^T.g_u, g_wy = g_u.obj^T, g_wx = g_paste^T.u.
@@ -256,8 +320,8 @@ def windowed_bounds(shape, band_rows: int):
     for name, nbytes, fma in (("fwd", read + img_bytes, fwd_fma),
                               ("bwd", read + img_bytes + grads, bwd_fma)):
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * fma / PEAK_FP32 * 1e3
-        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
-                     nbytes, 2 * fma)
+        by = "bytes" if t_bytes > t_ops else "operations"
+        out[name] = (max(t_bytes, t_ops), by, nbytes, 2 * fma, by)
     return out
 
 
@@ -265,16 +329,18 @@ def time_windowed(torch, render, windowed, shape, noise_scale):
     """Times of the windowed pair, its plain version and the full-canvas pair
     on the same inputs, in turns within one call; also the sum of band rows."""
     b, grid, os_, canvas, c = shape
-    args, seed_t, ys = render_inputs(torch, b, grid, os_, canvas, c, 11)
+    taps, args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 11)
+    ys = taps[1]
     bands = windowed.compute_bands(ys, os_)
     noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
     g = torch.rand((b, canvas, canvas, c), device="cuda")
     ins = [a.clone().requires_grad_(True) for a in args]
     out_p = windowed.render_windowed_reference(*ins, bands, noise)
+    _, sums = render._fwd(*taps, seed_t, noise_scale)
     return {
-        "full_fwd": cuda_ms(lambda: render._fwd(*args, seed_t, noise_scale)),
+        "full_fwd": cuda_ms(lambda: render._fwd(*taps, seed_t, noise_scale)),
         "fwd": cuda_ms(lambda: windowed._fwd(*args, bands, seed_t, noise_scale)),
-        "full_bwd": cuda_ms(lambda: render._bwd(*args, seed_t, noise_scale, g)),
+        "full_bwd": cuda_ms(lambda: render._bwd(*taps, seed_t, noise_scale, sums, g)),
         "bwd": cuda_ms(lambda: windowed._bwd(*args, bands, seed_t, noise_scale, g)),
         "plain_fwd": cuda_ms(lambda: windowed.render_windowed_reference(*args, bands, noise)),
         "plain_bwd": cuda_ms(lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True)),
@@ -283,19 +349,39 @@ def time_windowed(torch, render, windowed, shape, noise_scale):
     }
 
 
+ROWS_PER_BLOCK_SWEEP = (1, 2, 4, 8, 10)
+RENDER_CELLS_PER_BLOCK_SWEEP = (1, 2, 4, 8, 16)
+
+
 def time_render(torch, render, shape, noise_scale):
+    """Kernel and plain times (the plain version: ``render_taps_reference``
+    and its autograd backward), the ``render_noise`` kernel writing the same
+    call's normals (a yardstick for the noise term), the forward at each
+    rows-a-block count of ROWS_PER_BLOCK_SWEEP and the backward at each
+    cells-a-block count of RENDER_CELLS_PER_BLOCK_SWEEP. Also returns the
+    inputs' coordinates, for the bounds."""
     b, grid, os_, canvas, c = shape
-    args, seed_t, _ = render_inputs(torch, b, grid, os_, canvas, c, 11)
+    args, _, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 11)
     noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
     g = torch.rand((b, canvas, canvas, c), device="cuda")
     ins = [a.clone().requires_grad_(True) for a in args]
-    out_p = render.render_reference(*ins, noise)
-    return {
+    out_p = render.render_taps_reference(*ins, noise)
+    _, sums = render._fwd(*args, seed_t, noise_scale)
+    times = {
         "fwd": cuda_ms(lambda: render._fwd(*args, seed_t, noise_scale)),
-        "bwd": cuda_ms(lambda: render._bwd(*args, seed_t, noise_scale, g)),
-        "plain_fwd": cuda_ms(lambda: render.render_reference(*args, noise)),
+        "bwd": cuda_ms(lambda: render._bwd(*args, seed_t, noise_scale, sums, g)),
+        "plain_fwd": cuda_ms(lambda: render.render_taps_reference(*args, noise)),
         "plain_bwd": cuda_ms(lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True)),
+        "noise": cuda_ms(lambda: render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)),
+        "coords": (args[1], args[2]),
     }
+    times["sweep_fwd"] = {n: cuda_ms(lambda: render._fwd(*args, seed_t, noise_scale,
+                                                         rows_per_block=n))
+                          for n in ROWS_PER_BLOCK_SWEEP}
+    times["sweep_bwd"] = {n: cuda_ms(lambda: render._bwd(*args, seed_t, noise_scale, sums, g,
+                                                         cells_per_block=n))
+                          for n in RENDER_CELLS_PER_BLOCK_SWEEP}
+    return times
 
 
 def crop_inputs(torch, b, grid, canvas, glimpse, c, seed, z_scale=1.0):
@@ -372,8 +458,8 @@ def crop_bounds(shape):
                                 ("bwd", out + img + 2 * coords, bwd_ops),
                                 ("bwd_all", out + 2 * img + 2 * coords, bwd_ops + 8 * n_pix * c)):
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-        res[name] = (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
-                     nbytes, flops)
+        by = "bytes" if t_bytes > t_ops else "operations"
+        res[name] = (max(t_bytes, t_ops), by, nbytes, flops, by)
     return res
 
 
@@ -812,6 +898,8 @@ def main() -> None:
                     (ragged_shape, 0.01), (p3_shape, 0.01))
     for i, (shape, noise) in enumerate(render_cases):
         keep("render", *compare_kernels(torch, render, shape, noise, seed=i + 1))
+    keep("render", *compare_kernels(torch, render, cfg5_shape, 0.01, seed=6, z_scale=10.0))
+    keep("render", *compare_kernels(torch, render, ragged_shape[:4] + (1,), 0.01, seed=7))
     for i, (shape, noise) in enumerate(render_cases + ((p3_shape, 0.0),)):
         keep("render_windowed", *compare_windowed(torch, render, windowed, shape, noise,
                                                   seed=i + 1))
@@ -832,12 +920,20 @@ def main() -> None:
     # Phase 4: times, with the main paths' render noise 0.01.
     times, bound, chain_ms = {}, {}, {}
     for label, shape in (("P1/P2", cfg5_shape), ("P3", p3_shape)):
-        t, bd = time_render(torch, render, shape, 0.01), bounds(shape)
+        t = time_render(torch, render, shape, 0.01)
+        bd = bounds(shape, *t["coords"], 0.01)
         for name in ("fwd", "bwd"):
-            tb, by, nbytes, flops = bd[name]
-            log(f"render {name} at {label} {shape}: kernel {t[name]:.4f} ms, plain "
-                f"{t['plain_' + name]:.4f} ms, bound {tb:.4f} ms by {by} "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            tb, by, nbytes, flops, term = bd[name]
+            log(f"render {name} at {label} {shape}: kernel {t[name]:.4f} ms ({tb / t[name]:.3f} of "
+                f"the bound), plain {t['plain_' + name]:.4f} ms, bound {tb:.4f} ms by {term} "
+                f"(bytes {nbytes / 1e6:.1f} MB = {nbytes / PEAK_BYTES * 1e3:.4f} ms, "
+                f"{flops / 1e9:.3f} GFLOP = {flops / PEAK_FP32 * 1e3:.4f} ms)")
+        log(f"render_noise at {label}: {t['noise']:.4f} ms for the call's "
+            f"{shape[0] * shape[1] ** 2 * shape[4] * shape[3] ** 2 / 1e6:.2f} M normals")
+        log(f"render rows a block (forward ms; the wrapper takes {render.ROWS_PER_BLOCK}): "
+            + ", ".join(f"{n}: {v:.4f}" for n, v in t["sweep_fwd"].items()))
+        log(f"render cells a block (backward ms; the wrapper takes {render.CELLS_PER_BLOCK}): "
+            + ", ".join(f"{n}: {v:.4f}" for n, v in t["sweep_bwd"].items()))
         if label == "P1/P2":
             for name in ("fwd", "bwd"):
                 times["render_" + name] = (t[name], t["plain_" + name], None)
@@ -849,7 +945,7 @@ def main() -> None:
         log(f"windowed render at {label} {shape}: bands of {t['band_rows'] / cells:.2f} rows a "
             f"cell of {shape[3]}; compute_bands {t['bands']:.4f} ms")
         for name in ("fwd", "bwd"):
-            tb, by, nbytes, flops = bd[name]
+            tb, by, nbytes, flops, _ = bd[name]
             log(f"windowed render {name} at {label}: kernel {t[name]:.4f} ms "
                 f"({t[name] / t['full_' + name]:.3f} of the full-canvas kernel's "
                 f"{t['full_' + name]:.4f} ms in the same turns), plain {t['plain_' + name]:.4f} "
@@ -859,9 +955,10 @@ def main() -> None:
                 times["render_windowed_" + name] = (t[name], t["plain_" + name], None)
                 bound["render_windowed_" + name] = bd[name]
     for label, shape in (("P1/P2", crop_p1), ("P3", crop_p3)):
-        t, bd = time_crop(torch, crop, shape), crop_bounds(shape)
+        t = time_crop(torch, crop, shape)
+        bd = crop_bounds(shape)
         for name in ("fwd", "bwd", "bwd_all"):
-            tb, by, nbytes, flops = bd[name]
+            tb, by, nbytes, flops, _ = bd[name]
             log(f"crop {name} at {label} {shape}: kernel {t[name]:.4f} ms ({tb / t[name]:.3f} "
                 f"of the bound), plain {t['plain_' + name]:.4f} ms, library (einsum on prebuilt "
                 f"weights) {t['library_' + name]:.4f} ms, library chain (interp_matrix x2 + "
@@ -922,7 +1019,7 @@ def main() -> None:
     kernels = []
     for name in KERNELS:
         ms, plain_ms, library_ms = times[name]
-        t, by, _, _ = bound[name]
+        t, by, _, _, term = bound[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"split_vae_torch/csrc/{name.rsplit('_', 1)[0]}.cu",
@@ -930,7 +1027,7 @@ def main() -> None:
             "launches": sum(path[name] for path in launches.values()),
             "launches_by_path": {path: counts[name] for path, counts in launches.items()},
             "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": t, "bound_by": by, "library_ms": library_ms,
+            "bound_ms": t, "bound_by": by, "bound_term": term, "library_ms": library_ms,
             "library_chain_ms": chain_ms.get(name),
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,39 +1,42 @@
-"""Fused paste + composite render: the CUDA kernel pair and its plain version.
+"""Fused paste + composite render: the CUDA kernel pair over the sample
+coordinates, and its plain versions.
 
-Replaces the Pallas TPU kernels
+    paste[b,k,y,x,c] = sum_{i,j} wy[b,k,y,i] * obj[b,k,i,j,c] * wx[b,k,x,j]
+    wy = interp_matrix(ys, h), wx = interp_matrix(xs, w)
+
+then the depth-aware alpha composite over the background with the seeded
+render noise. Replaces the Pallas TPU kernels
 ``split_vae_tpu/ops/pallas/render_packed.py::fused_paste_render_packed``
 (``_fwd_kernel``, ``_bwd_kernel``) and, for shapes that are not multiples of 8,
-``split_vae_tpu/ops/pallas/render_fused.py::fused_paste_render``: the CUDA
-kernels in ``csrc/render.cu`` take any object and canvas size.
+``split_vae_tpu/ops/pallas/render_fused.py::fused_paste_render``, which take
+the dense ``wy``, ``wx`` and multiply them out. Every row of those holds at
+most two non-zeros, so the kernels in ``csrc/render.cu`` take the paste's
+sample coordinates ys [B,K,H] and xs [B,K,W] (``ops/stn.py::
+paste_sample_coords``) and read four taps a canvas pixel; the dense matrices
+and their dense gradients are never formed on the card. The taps are
+``interp_matrix``'s in fp32, out-of-object rule included (where a
+coordinate's two clamped taps coincide its row or column pastes exactly 0).
 
-What bounds it on an H100 SXM (LG-SPAIR config #5: B=256, K=16, 32-px
-objects with 3+1 channels, 48-px canvases, fp32):
+What bounds the pair on an H100 SXM (LG-SPAIR config #5: B=256, K=16, 32-px
+objects with 3+1 channels, 48-px canvases, fp32) is the render noise: 28.3 M
+Philox normals a call, each 111 instructions a lane (sm_90a SASS), against
+~95 MB forward and ~170 MB backward (28 and 51 us at 3.35 TB/s) and a few
+hundred MFLOP. ``chip_smoke.py::bounds`` has the three terms.
 
-- forward: ~132 MB moved (objs 67 MB, Wy and Wx 50 MB, bg and out 14 MB),
-  ~39 us at 3.35 TB/s; ~4.0 GFLOP of dense products (obj.Wx^T then Wy.tmp,
-  0.98 MFLOP per cell), ~60 us at 67 TFLOP/s fp32 without tensor cores. So
-  it is bound by operations.
-- backward: ~255 MB moved (the inputs and g, and gradients shaped as the
-  inputs), ~76 us; one paste (4.0 GFLOP) plus the four gradient products
-  gp.Wx, Wy^T.(gp.Wx), Wy.obj and gp^T.(Wy.obj), gp.tmp^T (10.5 GFLOP),
-  ~14.5 GFLOP, ~216 us. Bound by operations.
+Design (``csrc/render.cu``): the forward takes a thread a canvas pixel, walks
+the cells in order with the sums in registers, reads the four taps straight
+from device memory (16 bytes each) where both taps lie in the object, repeats
+the dense einsums' roundings, and also writes the sums S1, S2, S3 (C+2
+planes an image) for the backward. The backward reads those sums, so it
+generates the noise once, not twice: a block takes CELLS_PER_BLOCK cells of
+an image, recomputes each cell's paste and noise a thread a pixel, keeps the
+paste's gradient in shared memory and gathers g_obj, g_ys and g_xs from it in
+a fixed order, without atomics. Measured times are in PERF.md.
 
-Design: one block per image with a loop over the cells, so the per-cell
-canvases [B, K, H, W, C+1] never reach device memory (the point of the TPU
-kernel too). Each thread keeps its pixels' three sums in registers; the
-shared-memory arrays have odd row lengths and the threads' rows and columns
-are strided, so the small products read shared memory without bank
-conflicts. The backward recomputes each paste instead of keeping the K
-pastes, which would not fit in shared memory, and regenerates the render
-noise from a counter-based Philox keyed by (seed + image), so forward and
-backward see the same noise with no state. Plain fp32 FMAs, no tensor cores:
-on an H100 (700 W) the forward runs ~10x its bound and the backward ~12x
-(PERF.md); overlapping the staging of the next cell with the products is the
-next step.
-
-On a CPU tensor the wrapper computes ``render_reference`` (with the same
-noise field, from a numpy Philox); on a CUDA tensor it launches the kernel or
-raises.
+On a CPU tensor the wrapper computes ``render_taps_reference`` (with the same
+noise field, from a numpy Philox) and autograd through it; on a CUDA tensor it
+launches the kernels or raises. ``render_reference`` is the dense plain form
+over given weights, which the tests hold against the Pallas kernels.
 """
 
 from __future__ import annotations
@@ -47,11 +50,17 @@ import torch
 from split_vae_torch.kernels.build import build as build_library
 from split_vae_torch.kernels.build import check_tensor as _check
 from split_vae_torch.kernels.build import stream_of as _stream
+from split_vae_torch.kernels.crop import interp_matrix
 
 # Launch counts of the forward and backward kernels: each wrapper adds one
 # where it launches its kernel, and nowhere else.
 fwd_launches = 0
 bwd_launches = 0
+
+# Canvas rows a block in the forward and cells a block in the backward, from
+# the sweep in chip_smoke.py::time_render (PERF.md).
+ROWS_PER_BLOCK = 8
+CELLS_PER_BLOCK = 16
 
 _EPS = 1e-8
 _lib = None
@@ -113,6 +122,15 @@ def render_reference(objs, wy, wx, z_pres, depth_w, bg,
     if noise is not None:
         noise = noise.permute(0, 1, 3, 4, 2)
     return composite(paste(objs, wy, wx), z_pres, depth_w, bg, noise)
+
+
+def render_taps_reference(objs, ys, xs, z_pres, depth_w, bg,
+                          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernels' function over the sample coordinates ys [B,K,H], xs
+    [B,K,W]: the dense weights from them, then ``render_reference``; autograd
+    gives the gradients of all six inputs."""
+    return render_reference(objs, interp_matrix(ys, objs.shape[2]),
+                            interp_matrix(xs, objs.shape[3]), z_pres, depth_w, bg, noise)
 
 
 # --------------------------------------------------------------------------
@@ -179,9 +197,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build_library("render"))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.render_fwd.argtypes = [p] * 7 + [f, p] + [i] * 7 + [p]
+        lib.render_fwd.argtypes = [p] * 7 + [f, p, p] + [i] * 8 + [p]
         lib.render_fwd.restype = i
-        lib.render_bwd.argtypes = [p] * 7 + [f] + [p] * 8 + [i] * 7 + [p]
+        lib.render_bwd.argtypes = [p] * 7 + [f] + [p] * 8 + [i] * 8 + [p]
         lib.render_bwd.restype = i
         lib.render_noise.argtypes = [p, p] + [i] * 5 + [p]
         lib.render_noise.restype = i
@@ -197,76 +215,88 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def _shapes(objs, wy, wx, z_pres, depth_w, bg):
+_NAMES = ("objs", "ys", "xs", "z_pres", "depth_w", "bg")
+
+
+def _shapes(objs, ys, xs, z_pres, depth_w, bg):
+    if objs.dim() != 5 or ys.dim() != 3 or xs.dim() != 3:
+        raise ValueError(f"need objs [B,K,h,w,C+1], ys [B,K,H], xs [B,K,W]; got "
+                         f"{tuple(objs.shape)}, {tuple(ys.shape)}, {tuple(xs.shape)}")
     b, k, h, w, c1 = objs.shape
-    hh, ww = wy.shape[2], wx.shape[2]
-    want = {"wy": (b, k, hh, h), "wx": (b, k, ww, w), "z_pres": (b, k),
-            "depth_w": (b, k), "bg": (b, hh, ww, c1 - 1)}
-    got = {"wy": wy, "wx": wx, "z_pres": z_pres, "depth_w": depth_w, "bg": bg}
-    for name, shape in want.items():
-        if tuple(got[name].shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got {tuple(got[name].shape)}")
+    hh, ww = ys.shape[2], xs.shape[2]
+    want = {"ys": (b, k, hh), "xs": (b, k, ww), "z_pres": (b, k), "depth_w": (b, k),
+            "bg": (b, hh, ww, c1 - 1)}
+    for name, t in zip(_NAMES[1:], (ys, xs, z_pres, depth_w, bg)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name}: expected shape {want[name]}, got {tuple(t.shape)}")
     if c1 - 1 not in (1, 3):
         raise ValueError(f"render kernels take 1 or 3 colour channels, got {c1 - 1}")
     return b, k, h, w, hh, ww, c1 - 1
 
 
-def _fwd(objs, wy, wx, z_pres, depth_w, bg, seed, noise_scale):
+def _fwd(objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale,
+         rows_per_block: int = ROWS_PER_BLOCK):
+    """The forward kernel: (out [B,H,W,C], sums [B,C+2,H,W])."""
     global fwd_launches
-    for name, t in zip(("objs", "wy", "wx", "z_pres", "depth_w", "bg"),
-                       (objs, wy, wx, z_pres, depth_w, bg)):
+    for name, t in zip(_NAMES, (objs, ys, xs, z_pres, depth_w, bg)):
         _check(t, torch.float32, name)
     _check(seed, torch.int32, "seed")
-    b, k, h, w, hh, ww, c = _shapes(objs, wy, wx, z_pres, depth_w, bg)
-    lib = _load()
+    b, k, h, w, hh, ww, c = _shapes(objs, ys, xs, z_pres, depth_w, bg)
     out = torch.empty((b, hh, ww, c), device=objs.device, dtype=torch.float32)
-    err = lib.render_fwd(objs.data_ptr(), wy.data_ptr(), wx.data_ptr(), z_pres.data_ptr(),
-                         depth_w.data_ptr(), bg.data_ptr(), seed.data_ptr(), float(noise_scale),
-                         out.data_ptr(), b, k, h, w, hh, ww, c, _stream(objs))
+    sums = torch.empty((b, c + 2, hh, ww), device=objs.device, dtype=torch.float32)
+    err = _load().render_fwd(objs.data_ptr(), ys.data_ptr(), xs.data_ptr(), z_pres.data_ptr(),
+                             depth_w.data_ptr(), bg.data_ptr(), seed.data_ptr(),
+                             float(noise_scale), out.data_ptr(), sums.data_ptr(),
+                             b, k, h, w, hh, ww, c, rows_per_block, _stream(objs))
     _raise_on(err, "render_fwd")
     fwd_launches += 1
-    return out
+    return out, sums
 
 
-def _bwd(objs, wy, wx, z_pres, depth_w, bg, seed, noise_scale, g):
+def _bwd(objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale, sums, g,
+         cells_per_block: int = CELLS_PER_BLOCK):
+    """The backward kernel: the gradients of (objs, ys, xs, z_pres, depth_w, bg)."""
     global bwd_launches
     _check(g, torch.float32, "g")
-    b, k, h, w, hh, ww, c = _shapes(objs, wy, wx, z_pres, depth_w, bg)
-    lib = _load()
-    grads = [torch.empty_like(t) for t in (objs, wy, wx, z_pres, depth_w, bg)]
-    # The composite's gradients (C + 2 planes an image), passed from the
-    # kernel's first pass to its second.
-    scratch = torch.empty((b, c + 2, hh, ww), device=objs.device, dtype=torch.float32)
-    err = lib.render_bwd(objs.data_ptr(), wy.data_ptr(), wx.data_ptr(), z_pres.data_ptr(),
-                         depth_w.data_ptr(), bg.data_ptr(), seed.data_ptr(), float(noise_scale),
-                         g.data_ptr(), *(t.data_ptr() for t in grads), scratch.data_ptr(),
-                         b, k, h, w, hh, ww, c, _stream(objs))
+    _check(sums, torch.float32, "sums")
+    b, k, h, w, hh, ww, c = _shapes(objs, ys, xs, z_pres, depth_w, bg)
+    for name, t, shape in (("g", g, (b, hh, ww, c)), ("sums", sums, (b, c + 2, hh, ww))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    grads = [torch.empty_like(t) for t in (objs, ys, xs, z_pres, depth_w, bg)]
+    err = _load().render_bwd(objs.data_ptr(), ys.data_ptr(), xs.data_ptr(), z_pres.data_ptr(),
+                             depth_w.data_ptr(), bg.data_ptr(), seed.data_ptr(),
+                             float(noise_scale), sums.data_ptr(), g.data_ptr(),
+                             *(t.data_ptr() for t in grads), b, k, h, w, hh, ww, c,
+                             cells_per_block, _stream(objs))
     _raise_on(err, "render_bwd")
     bwd_launches += 1
     return grads
 
 
 class FusedPasteRender(torch.autograd.Function):
-    """Kernel forward; the backward kernel recomputes the pastes and noise."""
+    """Kernel forward, which also keeps the composite's sums; the backward
+    kernel reads them and recomputes each paste and its noise once."""
 
     @staticmethod
-    def forward(ctx, objs, wy, wx, z_pres, depth_w, bg, seed, noise_scale):
-        ctx.save_for_backward(objs, wy, wx, z_pres, depth_w, bg, seed)
+    def forward(ctx, objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale):
+        out, sums = _fwd(objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale)
+        ctx.save_for_backward(objs, ys, xs, z_pres, depth_w, bg, seed, sums)
         ctx.noise_scale = noise_scale
-        return _fwd(objs, wy, wx, z_pres, depth_w, bg, seed, noise_scale)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        objs, wy, wx, z_pres, depth_w, bg, seed = ctx.saved_tensors
-        grads = _bwd(objs, wy, wx, z_pres, depth_w, bg, seed, ctx.noise_scale,
-                     g.contiguous())
+        *inputs, seed, sums = ctx.saved_tensors
+        grads = _bwd(*inputs, seed, ctx.noise_scale, sums, g.contiguous())
         return (*grads, None, None)
 
 
-def fused_paste_render(objs, wy, wx, z_pres, depth_w, bg, seed: torch.Tensor,
+def fused_paste_render(objs, ys, xs, z_pres, depth_w, bg, seed: torch.Tensor,
                        noise_scale: float) -> torch.Tensor:
-    """objs [B,K,h,w,C+1], wy [B,K,H,h], wx [B,K,W,w], z_pres/depth_w [B,K],
-    bg [B,H,W,C], seed int32 [1] -> x_recon [B,H,W,C].
+    """objs [B,K,h,w,C+1], ys [B,K,H], xs [B,K,W] (the paste's sample
+    coordinates in object pixels), z_pres/depth_w [B,K], bg [B,H,W,C], seed
+    int32 [1] -> x_recon [B,H,W,C].
 
     CUDA tensors launch the kernel pair; CPU tensors take the plain version
     with the same noise field.
@@ -275,7 +305,7 @@ def fused_paste_render(objs, wy, wx, z_pres, depth_w, bg, seed: torch.Tensor,
         noise = None
         if noise_scale > 0.0:
             b, k, _, _, c1 = objs.shape
-            noise = noise_scale * render_noise(seed, b, k, c1 - 1, wy.shape[2], wx.shape[2])
-        return render_reference(objs, wy, wx, z_pres, depth_w, bg, noise)
-    args = [t.contiguous() for t in (objs, wy, wx, z_pres, depth_w, bg, seed)]
+            noise = noise_scale * render_noise(seed, b, k, c1 - 1, ys.shape[2], xs.shape[2])
+        return render_taps_reference(objs, ys, xs, z_pres, depth_w, bg, noise)
+    args = [t.contiguous() for t in (objs, ys, xs, z_pres, depth_w, bg, seed)]
     return FusedPasteRender.apply(*args, float(noise_scale))

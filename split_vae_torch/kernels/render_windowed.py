@@ -58,7 +58,7 @@ import torch
 from split_vae_torch.kernels.build import build as build_library
 from split_vae_torch.kernels.build import check_tensor as _check
 from split_vae_torch.kernels.build import stream_of as _stream
-from split_vae_torch.kernels.render import _shapes, clip_strict, paste, render_noise
+from split_vae_torch.kernels.render import clip_strict, paste, render_noise
 
 # Launch counts of the forward and backward kernels: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -150,6 +150,20 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def _shapes(objs, wy, wx, z_pres, depth_w, bg):
+    b, k, h, w, c1 = objs.shape
+    hh, ww = wy.shape[2], wx.shape[2]
+    want = {"wy": (b, k, hh, h), "wx": (b, k, ww, w), "z_pres": (b, k),
+            "depth_w": (b, k), "bg": (b, hh, ww, c1 - 1)}
+    got = {"wy": wy, "wx": wx, "z_pres": z_pres, "depth_w": depth_w, "bg": bg}
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(got[name].shape)}")
+    if c1 - 1 not in (1, 3):
+        raise ValueError(f"render kernels take 1 or 3 colour channels, got {c1 - 1}")
+    return b, k, h, w, hh, ww, c1 - 1
+
+
 def _check_bands(bands: torch.Tensor, b: int, k: int) -> None:
     _check(bands, torch.int32, "bands")
     if tuple(bands.shape) != (b, k, 2):
@@ -214,10 +228,11 @@ class FusedPasteRenderWindowed(torch.autograd.Function):
 
 def fused_paste_render_windowed(objs, wy, wx, z_pres, depth_w, bg, seed: torch.Tensor,
                                 ys: torch.Tensor, noise_scale: float) -> torch.Tensor:
-    """``kernels/render.py::fused_paste_render`` with row windowing.
-
-    The same contract plus ``ys`` [B,K,H], the paste sample coordinates (from
-    ``ops/stn.py::paste_interp_weights_ys``), which locate each cell's band;
+    """``kernels/render.py::fused_paste_render`` with row windowing, over the
+    dense weights ``wy`` [B,K,H,h], ``wx`` [B,K,W,w] (``interp_matrix`` of the
+    sample coordinates), and ``ys`` [B,K,H], the paste's row sample
+    coordinates (``ops/stn.py::paste_sample_coords``), which locate each
+    cell's band;
     ``ys`` gets no gradient. CUDA tensors launch the kernel pair; CPU tensors
     take the plain version with the same noise field.
     """

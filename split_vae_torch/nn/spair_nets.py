@@ -17,10 +17,11 @@ from torch import nn
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.kernels import render as render_kernels
 from split_vae_torch.kernels import render_windowed as windowed_kernels
+from split_vae_torch.kernels.crop import interp_matrix
 from split_vae_torch.nn.common import Conv, Dense, flatten
 from split_vae_torch.nn.pixel_shuffle import Resize2xConv
 from split_vae_torch.ops.distributions import concrete_binary_pre_sigmoid_sample, reparameterize
-from split_vae_torch.ops.stn import paste_interp_weights_ys, stn_crop, stn_paste
+from split_vae_torch.ops.stn import paste_sample_coords, stn_crop, stn_paste
 
 
 def _conv_out(n: int, stride: int) -> int:
@@ -397,8 +398,7 @@ class SpairDecoder(nn.Module):
     """Decode every cell's object and paste it onto a full canvas (spair/spair.py:500-532).
 
     With ``fused`` the paste is left to the fused render: the third output is
-    then (wy, wx, ys), the paste's interpolation weights and its row sample
-    coordinates (which the row-windowed render reads), not the canvases.
+    then (ys, xs), the paste's sample coordinates, not the canvases.
     """
 
     def __init__(self, image_hw: Tuple[int, int], object_size: int, num_channel: int,
@@ -418,9 +418,8 @@ class SpairDecoder(nn.Module):
         obj_recon_unnorm = rgb.reshape(b, k, os_, os_, self.num_channel)
         obj_recon_alpha = alpha.reshape(b, k, os_, os_, 1)
         if fused:
-            wy, wx, obj_bbox_mask, ys = paste_interp_weights_ys(z_where, self.image_hw,
-                                                                (os_, os_))
-            return obj_recon_unnorm, obj_recon_alpha, (wy, wx, ys), obj_bbox_mask
+            ys, xs, obj_bbox_mask = paste_sample_coords(z_where, self.image_hw, (os_, os_))
+            return obj_recon_unnorm, obj_recon_alpha, (ys, xs), obj_bbox_mask
         concat = torch.cat([obj_recon_unnorm, obj_recon_alpha], dim=-1)
         obj_full_recon_unnorm, obj_bbox_mask = stn_paste(concat, z_where, self.image_hw)
         return obj_recon_unnorm, obj_recon_alpha, obj_full_recon_unnorm, obj_bbox_mask
@@ -437,7 +436,7 @@ def fused_decode_render(decoder: SpairDecoder, noise: Noise, z_what, z_where, z_
     function, each cell confined to its row band). Returns
     (obj_recon_unnorm, obj_recon_alpha, obj_bbox_mask, x_recon).
     """
-    obj_ru, obj_ra, (wy, wx, ys), bbox = decoder(z_what, z_where, fused=True)
+    obj_ru, obj_ra, (ys, xs), bbox = decoder(z_what, z_where, fused=True)
     concat = torch.cat([obj_ru, obj_ra], dim=-1)
     b = concat.shape[0]
     zp = z_pres.reshape(b, -1)
@@ -446,10 +445,11 @@ def fused_decode_render(decoder: SpairDecoder, noise: Noise, z_what, z_where, z_
                                                 device=concat.device),
                                 (b, image_hw[0], image_hw[1], num_channel))
     if windowed:
+        wy, wx = interp_matrix(ys, concat.shape[2]), interp_matrix(xs, concat.shape[3])
         x_recon = windowed_kernels.fused_paste_render_windowed(
             concat, wy, wx, zp, wd, bg_img, noise.seed(), ys, noise_scale)
     else:
-        x_recon = render_kernels.fused_paste_render(concat, wy, wx, zp, wd, bg_img,
+        x_recon = render_kernels.fused_paste_render(concat, ys, xs, zp, wd, bg_img,
                                                     noise.seed(), noise_scale)
     return obj_ru, obj_ra, bbox, x_recon
 

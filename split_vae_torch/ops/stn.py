@@ -4,9 +4,10 @@ The SPAIR affine is axis-aligned, so bilinear sampling factorizes into two
 1-D interpolations: out[p, q] = sum_{i,j} Wy[p, i] * Wx[q, j] * img[i, j].
 ``Wy`` and ``Wx`` are banded interpolation matrices with the reference's
 clipping semantics (spair/utils.py:229-246): samples outside the image net to
-zero. Geometry stays f32. The crop hands its sample coordinates to
-``kernels/crop.py``, which gathers the two taps of each row and column; the
-paste keeps the dense matrices.
+zero. Geometry stays f32. The crop and the fused render take the sample
+coordinates (``crop_sample_coords``, ``paste_sample_coords``) and gather the
+two taps of each row and column in their kernels; the dense matrices are
+built here only for the plain forms and the row-windowed render.
 """
 
 from __future__ import annotations
@@ -104,11 +105,13 @@ def paste_interp_weights(z_where: torch.Tensor, out_hw: Tuple[int, int],
     return wy, wx, bbox
 
 
-def paste_interp_weights_ys(z_where: torch.Tensor, out_hw: Tuple[int, int],
-                            in_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO,
-                            eps: float = 1e-5):
-    """paste_interp_weights and the row sample coordinates ys [B,K,H], which
-    locate each cell's paste support (the windowed render needs them)."""
+def paste_sample_coords(z_where: torch.Tensor, out_hw: Tuple[int, int],
+                        in_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO,
+                        eps: float = 1e-5):
+    """Sample coordinates of the inverse (paste) transform, in object pixels:
+    (ys [B,K,H], xs [B,K,W], bbox [B,K,4]) for canvases out_hw = (H, W) and
+    objects in_hw = (h, w). Small boxes give coordinates far outside the
+    object (1/(s + eps) is large); their rows and columns paste nothing."""
     h_in, w_in = in_hw
     ho, wo = out_hw
     sx, sy, tx, ty = zwhere_to_params(z_where, cell_ratio)
@@ -117,9 +120,18 @@ def paste_interp_weights_ys(z_where: torch.Tensor, out_hw: Tuple[int, int],
     sy_i = 1.0 / (sy + eps)
     tx_i = -tx / (sx + eps)
     ty_i = -ty / (sy + eps)
-    wx = _interp_matrix(_sample_coords(sx_i, tx_i, wo, w_in), w_in)
+    xs = _sample_coords(sx_i, tx_i, wo, w_in)
     ys = _sample_coords(sy_i, ty_i, ho, h_in)
-    return _interp_matrix(ys, h_in), wx, bbox, ys
+    return ys, xs, bbox
+
+
+def paste_interp_weights_ys(z_where: torch.Tensor, out_hw: Tuple[int, int],
+                            in_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO,
+                            eps: float = 1e-5):
+    """paste_interp_weights and the row sample coordinates ys [B,K,H], which
+    locate each cell's paste support (the windowed render needs them)."""
+    ys, xs, bbox = paste_sample_coords(z_where, out_hw, in_hw, cell_ratio, eps)
+    return _interp_matrix(ys, in_hw[0]), _interp_matrix(xs, in_hw[1]), bbox, ys
 
 
 def stn_paste(objs: torch.Tensor, z_where: torch.Tensor, out_hw: Tuple[int, int],
