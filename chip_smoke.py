@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent CHECKOUT]
 
 Drives the port's main paths at full width (random weights from a seed):
 SPAIR-family train steps (B=256, 48-px canvases, 4x4 cells) through the
@@ -24,16 +24,19 @@ Phases, each of which must pass:
   2. build the kernels from split_vae_torch/csrc (one nvcc a source, side by
      side, sm_90a), timed;
   3. each kernel against its plain PyTorch version on the card (TF32 off).
-     Render (over the paste's sample coordinates ys, xs, against
-     render_taps_reference): at the config-#5 shapes and at an unaligned
-     shape (30-px objects on 45-px canvases), with render noise 0 and 0.01, at
-     28-px objects on 48 px, at config #5 with z_where x10 (saturated boxes,
-     coordinates far outside the object) and with one colour channel; the six
+     Both render pairs take the paste's sample coordinates ys, xs: the
+     full-canvas pair is held to render_taps_reference, the row-windowed pair
+     to render_windowed_taps_reference, at the config-#5 shapes and at an
+     unaligned shape (30-px objects on 45-px canvases), with render noise 0
+     and 0.01, at 28-px objects on 48 px, at config #5 with z_where x10
+     (saturated boxes, coordinates far outside the object) and with 1, 2 and
+     4 colour channels (2 and 4 run the kernels' general instance); the six
      gradients (objs, ys, xs, z_pres, depth_w, bg); two runs of each kernel
-     bit-equal. Windowed render (over the dense weights built from the same
-     coordinates): the same shapes and noise levels and 28-px objects on 48
-     px, also against the full-canvas kernel on the same inputs and seed
-     (forward atol 3e-6) and with g_wy exactly zero outside the bands. Crop
+     bit-equal. The windowed pair also against the full-canvas kernel on the
+     same inputs and seed (forward atol 3e-6), with g_ys exactly zero outside
+     the bands, and on a 66-row canvas (the kernels find a band in three
+     32-row ballots). With --parent, the full-canvas pair at C = 1 and 3 also
+     bit-equal to the kernel that checkout builds from its render.cu. Crop
      (over the sample coordinates ys, xs): at 48 -> 32 px and 48 -> 28 px
      (B=256), with 6 channels, at a ragged shape (9 cells, 45 -> 30 px) and
      at 48 -> 32 px with z_where x10; the gradients of img, ys and xs, and the
@@ -41,17 +44,19 @@ Phases, each of which must pass:
      Forward atol 3e-5, gradients rtol 1e-3, atol 2e-4: the limits the JAX
      package's tests hold its Pallas kernels to (fp32 sums in another order);
   4. kernel and plain times at the shapes of P1/P2/P4 and of P3 (median of
-     CUDA-event timings on the device alone) and bounds: the render with a
-     sweep of its rows a block (forward) and cells a block (backward) and the
-     render_noise kernel's time beside its three-term bound (bytes, FP32
-     operations, the Philox noise); the windowed pair in turns with the
-     full-canvas pair; the crop with two library times (the one-call einsum on
-     prebuilt weights; interp_matrix twice and that einsum) and a sweep of its
-     cells a block;
+     CUDA-event timings on the device alone) and three-term bounds (bytes,
+     of objs the sectors the taps read; FP32 operations; the Philox noise):
+     the render with a sweep of its rows a block (forward) and cells a block
+     (backward) and the render_noise kernel's time; the windowed pair in
+     turns with the full-canvas pair, with the same sweep; the crop with two
+     library times (the one-call einsum on prebuilt weights; interp_matrix
+     twice and that einsum) and a sweep of its cells a block;
   5. one small train step on the card against the same step on the CPU (plain
      kernels' versions) for LG-SPAIR (full-canvas and windowed render),
      BG-SPAIR, LGGlimpseSPAIR and LGVae, then each main path: train steps with
-     the kernels' launch counts set to 0 before and read after, a profile of
+     the kernels' launch counts set to 0 before and read after (and no call
+     of interp_matrix: no dense interpolation weights), the allocator's
+     counts and the garbage collector's passes around them, a profile of
      three more steps (device time by kernel family, the device's idle share),
      and one eval step; P4's losses beside P1's;
   6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
@@ -62,6 +67,8 @@ beside it.
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import os
 import statistics
@@ -134,11 +141,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3):
 def render_inputs(torch, b, grid, os_, canvas, c, seed, z_scale=1.0):
     """Config-#5-like render inputs on the card from random boxes (z_where
     from N(0, 1) times z_scale: at 10 most boxes saturate and many
-    coordinates fall outside the object). Returns the full-canvas pair's six
-    inputs (objs, ys, xs, z_pres, depth_w, bg: the paste's sample coordinates),
-    the dense ones the row-windowed pair takes (objs, wy, wx, ...: the
-    interpolation matrices built from ys, xs) and the seed tensor."""
-    from split_vae_torch.kernels.crop import interp_matrix
+    coordinates fall outside the object). Returns the render pairs' six
+    inputs (objs, ys, xs, z_pres, depth_w, bg: the paste's sample coordinates)
+    and the seed tensor."""
     from split_vae_torch.ops.stn import paste_sample_coords
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -150,18 +155,13 @@ def render_inputs(torch, b, grid, os_, canvas, c, seed, z_scale=1.0):
     depth_w = torch.sigmoid(-torch.randn((b, k), generator=g, device="cuda")) + 0.5
     bg = torch.rand((b, canvas, canvas, c), generator=g, device="cuda")
     seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int32, device="cuda")
-    ys, xs = ys.contiguous(), xs.contiguous()
-    taps = [objs, ys, xs, z_pres, depth_w, bg]
-    dense = [objs, interp_matrix(ys, os_).contiguous(), interp_matrix(xs, os_).contiguous(),
-             z_pres, depth_w, bg]
-    return taps, dense, seed_t
+    return [objs, ys.contiguous(), xs.contiguous(), z_pres, depth_w, bg], seed_t
 
 
-TAPS_INPUT_NAMES = ("objs", "ys", "xs", "z_pres", "depth_w", "bg")
-DENSE_INPUT_NAMES = ("objs", "wy", "wx", "z_pres", "depth_w", "bg")
+INPUT_NAMES = ("objs", "ys", "xs", "z_pres", "depth_w", "bg")
 
 
-def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed, names):
+def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed):
     """Fails unless a render kernel's forward (atol FWD_ATOL) and its six
     gradients under one random cotangent (GRAD_RTOL, GRAD_ATOL) agree with the
     plain version's; returns (fwd err, bwd err, the kernel's gradients)."""
@@ -174,7 +174,7 @@ def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed, names):
     if not fwd_err <= FWD_ATOL:
         fail(f"{what}: forward max |kernel - plain| {fwd_err:.3g} > {FWD_ATOL}")
     bwd_err = 0.0
-    for name, a, p in zip(names, g_k, g_p):
+    for name, a, p in zip(INPUT_NAMES, g_k, g_p):
         err = (a - p).abs()
         excess = (err - (GRAD_ATOL + GRAD_RTOL * p.abs())).max().item()
         if not excess <= 0:
@@ -184,31 +184,57 @@ def hold_to_plain(torch, what, out_k, out_p, ins_k, ins_p, seed, names):
     return fwd_err, bwd_err, g_k
 
 
-def compare_kernels(torch, render, shape, noise_scale, seed, z_scale=1.0):
-    """Kernel pair vs ``render_taps_reference``: forward and the six
-    gradients (objs, ys, xs, z_pres, depth_w, bg); then two runs of each
-    kernel must give bit-equal outputs. Returns (fwd err, bwd err)."""
+def compare_kernels(torch, render, shape, noise_scale, seed, z_scale=1.0, windowed=None):
+    """Kernel pair vs its plain version: forward and the six gradients (objs,
+    ys, xs, z_pres, depth_w, bg); then two runs of each kernel must give
+    bit-equal outputs. The full-canvas pair (``render_taps_reference``), or
+    with ``windowed`` the row-windowed pair (``render_windowed_taps_reference``),
+    which is also held to the full-canvas kernel on the same inputs and seed
+    (forward atol WINDOWED_VS_FULL_ATOL) and must give ys no gradient outside
+    the bands. Returns (fwd err, bwd err)."""
     b, grid, os_, canvas, c = shape
-    args, _, seed_t = render_inputs(torch, b, grid, os_, canvas, c, seed, z_scale)
+    args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, seed, z_scale)
     noise = None
     if noise_scale > 0:
         noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
     ins_k = [a.clone().requires_grad_(True) for a in args]
     ins_p = [a.clone().requires_grad_(True) for a in args]
-    out_k = render.fused_paste_render(*ins_k, seed_t, noise_scale)
-    out_p = render.render_taps_reference(*ins_p, noise)
+    if windowed is None:
+        label, module = "render", render
+        out_k = render.fused_paste_render(*ins_k, seed_t, noise_scale)
+        out_p = render.render_taps_reference(*ins_p, noise)
+    else:
+        label, module = "windowed render", windowed
+        out_k = windowed.fused_paste_render_windowed(*ins_k, seed_t, noise_scale)
+        out_p = windowed.render_windowed_taps_reference(*ins_p, noise)
     what = f"{shape} noise {noise_scale}" + (f", z_where x{z_scale:g}" if z_scale != 1.0 else "")
-    fwd_err, bwd_err, _ = hold_to_plain(torch, f"render {what}", out_k, out_p, ins_k, ins_p, seed,
-                                        TAPS_INPUT_NAMES)
+    fwd_err, bwd_err, g_k = hold_to_plain(torch, f"{label} {what}", out_k, out_p, ins_k, ins_p,
+                                          seed)
     g = torch.randn((b, canvas, canvas, c), generator=torch.Generator(device="cuda")
                     .manual_seed(seed), device="cuda")
-    _, sums = render._fwd(*args, seed_t, noise_scale)
-    calls = {"fwd": lambda: render._fwd(*args, seed_t, noise_scale),
-             "bwd": lambda: render._bwd(*args, seed_t, noise_scale, sums, g)}
+    _, sums = module._fwd(*args, seed_t, noise_scale)
+    calls = {"fwd": lambda: module._fwd(*args, seed_t, noise_scale),
+             "bwd": lambda: module._bwd(*args, seed_t, noise_scale, sums, g)}
     for name, call in calls.items():
         if not all(torch.equal(x, y) for x, y in zip(call(), call())):
-            fail(f"render {name} {what}: two runs of the kernel differ")
+            fail(f"{label} {name} {what}: two runs of the kernel differ")
     ys, xs = args[1], args[2]
+    if windowed is not None:
+        full_err = (out_k - render.fused_paste_render(*args, seed_t, noise_scale)).abs().max()
+        full_err = full_err.item()
+        if not full_err <= WINDOWED_VS_FULL_ATOL:
+            fail(f"windowed render {what}: max |windowed - full-canvas kernel| {full_err:.3g} > "
+                 f"{WINDOWED_VS_FULL_ATOL}")
+        bands = windowed.compute_bands(ys, os_)
+        stray = int(torch.count_nonzero(g_k[1][~windowed.band_mask(bands, canvas)]).item())
+        if stray:
+            fail(f"windowed render {what}: {stray} non-zero entries of g_ys outside the bands")
+        rows = bands[..., 1].float()
+        log(f"  windowed {what}: forward max err {fwd_err:.3g}, gradients max err "
+            f"{bwd_err:.3g}, repeats bit-equal, vs the full-canvas kernel {full_err:.3g}, g_ys "
+            f"zero outside the bands (band rows: mean {rows.mean().item():.2f}, max "
+            f"{int(rows.max().item())} of {canvas})")
+        return fwd_err, bwd_err
     outside = [((u < 0) | (u >= os_ - 1)).float().mean().item() for u in (ys, xs)]
     biggest = max(ys.abs().max().item(), xs.abs().max().item())
     log(f"  {what}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}, repeats "
@@ -217,136 +243,174 @@ def compare_kernels(torch, render, shape, noise_scale, seed, z_scale=1.0):
     return fwd_err, bwd_err
 
 
-def compare_windowed(torch, render, windowed, shape, noise_scale, seed):
-    """Windowed kernel vs its plain version (forward, six gradients), vs the
-    full-canvas kernel on the same inputs and seed (forward atol
-    WINDOWED_VS_FULL_ATOL), and g_wy exactly zero outside the bands; returns
-    (fwd err, bwd err)."""
-    b, grid, os_, canvas, c = shape
-    taps, args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, seed)
-    ys = taps[1]
-    bands = windowed.compute_bands(ys, os_)
-    noise = None
-    if noise_scale > 0:
-        noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
-    ins_k = [a.clone().requires_grad_(True) for a in args]
-    ins_p = [a.clone().requires_grad_(True) for a in args]
-    out_k = windowed.fused_paste_render_windowed(*ins_k, seed_t, ys, noise_scale)
-    out_p = windowed.render_windowed_reference(*ins_p, bands, noise)
-    what = f"{shape} noise {noise_scale}"
-    fwd_err, bwd_err, g_k = hold_to_plain(torch, f"windowed render {what}", out_k, out_p, ins_k,
-                                          ins_p, seed, DENSE_INPUT_NAMES)
-    full_err = (out_k - render.fused_paste_render(*taps, seed_t, noise_scale)).abs().max().item()
-    if not full_err <= WINDOWED_VS_FULL_ATOL:
-        fail(f"windowed render {what}: max |windowed - full-canvas kernel| {full_err:.3g} > "
-             f"{WINDOWED_VS_FULL_ATOL}")
-    outside = ~windowed.band_mask(bands, canvas)
-    stray = int(torch.count_nonzero(g_k[1][outside]).item())
-    if stray:
-        fail(f"windowed render {what}: {stray} non-zero entries of g_wy outside the bands")
-    rows = bands[..., 1].float()
-    log(f"  windowed {what}: forward max err {fwd_err:.3g}, gradients max err {bwd_err:.3g}, "
-        f"vs the full-canvas kernel {full_err:.3g}, g_wy zero outside the bands "
-        f"(band rows: mean {rows.mean().item():.2f}, max {int(rows.max().item())} of {canvas})")
-    return fwd_err, bwd_err
+def compare_with_parent(torch, render, parent):
+    """The full-canvas pair at C = 1 and 3 against the render library that
+    another checkout (``--parent DIR``) builds with its own kernels/build.py
+    from its own csrc/render.cu: the output, the sums and the six gradients
+    must be bit-equal on the same inputs."""
+    import ctypes
+
+    proc = subprocess.run([sys.executable, "-c", "from split_vae_torch.kernels import build; "
+                           "print(build.build('render'))"], cwd=parent, capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        fail(f"building {parent}'s render library: {proc.stderr}")
+    lib = ctypes.CDLL(proc.stdout.split()[-1])
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.render_fwd.argtypes = [p] * 7 + [f, p, p] + [i] * 8 + [p]
+    lib.render_bwd.argtypes = [p] * 7 + [f] + [p] * 8 + [i] * 8 + [p]
+    lib.render_fwd.restype = lib.render_bwd.restype = i
+    cases = (((256, 4, 32, 48, 3), 0.01, 1.0), ((8, 4, 30, 45, 3), 0.0, 1.0),
+             ((256, 4, 32, 48, 3), 0.01, 10.0), ((8, 4, 30, 45, 1), 0.01, 1.0))
+    for n, (shape, noise_scale, z_scale) in enumerate(cases):
+        b, grid, os_, canvas, c = shape
+        args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 40 + n, z_scale)
+        g = torch.randn((b, canvas, canvas, c), device="cuda")
+        out_, sums = render._fwd(*args, seed_t, noise_scale)
+        ours = [out_, sums, *render._bwd(*args, seed_t, noise_scale, sums, g)]
+        theirs = [torch.empty_like(t) for t in ours]
+        ptrs = [t.data_ptr() for t in (*args, seed_t)]
+        dims = (b, grid * grid, os_, os_, canvas, canvas, c)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.render_fwd(*ptrs, noise_scale, theirs[0].data_ptr(), theirs[1].data_ptr(),
+                             *dims, render.ROWS_PER_BLOCK, stream)
+        err = err or lib.render_bwd(*ptrs, noise_scale, theirs[1].data_ptr(), g.data_ptr(),
+                                    *(t.data_ptr() for t in theirs[2:]), *dims,
+                                    render.CELLS_PER_BLOCK, stream)
+        if err:
+            fail(f"{parent}'s render kernels: CUDA error {err}")
+        if not all(torch.equal(x, y) for x, y in zip(ours, theirs)):
+            fail(f"render {shape} noise {noise_scale} z_where x{z_scale:g}: outputs differ from "
+                 f"the kernel of {parent}")
+    log(f"  render at C = 1 and 3: output, sums and six gradients bit-equal to the kernel "
+        f"built from {parent} ({len(cases)} cases)")
 
 
-def bounds(shape, ys, xs, noise_scale):
+def object_sectors(torch, shape, ys, xs):
+    """Bytes of objs [B,K,h,w,C+1] (fp32) that the render pairs must read, in
+    32-byte sectors: the object pixels that some canvas pixel's four taps
+    read, i.e. the rows of the in-object row taps times the columns of the
+    in-object column taps, cell by cell. Cells whose box misses the object
+    read nothing. The row-windowed pair reads the same: every row with an
+    in-object tap lies in its band."""
+    b, grid, h, _, c = shape
+    w = h
+
+    def used(u, n):  # [B,K,N] coordinates -> [B,K,n]: the indices an in-object tap reads
+        x0 = torch.floor(u)
+        i0, i1 = x0.clamp(0, n - 1).long(), (x0 + 1).clamp(0, n - 1).long()
+        apart = i0 != i1
+        out = torch.zeros(u.shape[:-1] + (n + 1,), dtype=torch.bool, device=u.device)
+        out.scatter_(-1, torch.where(apart, i0, n), True)
+        out.scatter_(-1, torch.where(apart, i1, n), True)
+        return out[..., :n]
+
+    read = used(ys, h)[..., :, None] & used(xs, w)[..., None, :]
+    floats = read[..., None].expand(b, grid * grid, h, w, c + 1).reshape(-1)
+    floats = torch.nn.functional.pad(floats, (0, -floats.numel() % 8))
+    return 32 * int(floats.view(-1, 8).any(dim=1).sum().item())
+
+
+def bounds(shape, ys, xs, noise_scale, rows=None):
     """Least times (ms) for the forward and backward kernels at this shape and
-    on these coordinates: the largest of three terms.
+    on these coordinates: the largest of three terms. ``rows`` is the number
+    of canvas rows the pair computes, summed over the B*K cells: all of them
+    (B*K*H, the default) for the full-canvas pair, the bands' rows for the
+    row-windowed one.
 
-    Bytes: each input read once, each output written once (fp32). Forward:
-    objs, ys, xs, z_pres, depth_w, bg in; out and the sums (C+2 planes) out.
-    Backward: those inputs, the sums and g in; g_objs, g_ys, g_xs, g_zp, g_wd,
-    g_bg out.
+    Bytes: each input read once, each output written once (fp32), and of
+    objs only the 32-byte sectors that this run's taps read
+    (``object_sectors``). Forward: objs, ys, xs, z_pres, depth_w, bg in; out
+    and the sums (C+2 planes) out. Backward: those inputs, the sums and g in;
+    g_objs (in full), g_ys, g_xs, g_zp, g_wd, g_bg out.
     Operations, as the kernels do them and as this run's boxes need them
     (``in_box``: pixel-cells whose row and column taps both lie in the
     object): the paste 9 FLOP a channel (three products, three FMAs) in the
-    box; the composite 7 + 6C a pixel-cell; backward also the coordinates'
-    parts (10 a channel), the gather of g_obj (8 a channel) and 12 + 8C a
-    pixel-cell for the composite's gradient.
-    Noise: B*K*C*H*W Philox normals a call (each kernel draws each once, at
-    noise_scale > 0), NORMAL_INSTRUCTIONS lane instructions each, at one
-    instruction a lane a clock on 132 SMs x 128 lanes at 1.98 GHz
+    box; the composite 7 + 6C a computed pixel-cell; backward also the
+    coordinates' parts (10 a channel), the gather of g_obj (8 a channel) and
+    12 + 8C a computed pixel-cell for the composite's gradient.
+    Noise: C Philox normals a computed pixel-cell (each kernel draws each
+    once, at noise_scale > 0), NORMAL_INSTRUCTIONS lane instructions each, at
+    one instruction a lane a clock on 132 SMs x 128 lanes at 1.98 GHz
     (PEAK_FP32 / 2).
-    Returns {"fwd"/"bwd": (ms, by, bytes, FLOP, term)}: ``by`` is "bytes"
-    or "operations" (the noise counts as operations), ``term`` names the
-    largest of "bytes", "FP32 operations", "noise".
+    Returns {"fwd"/"bwd": (ms, by, bytes, FLOP, term)} and the bytes of objs
+    read: ``by`` is "bytes" or "operations" (the noise counts as operations),
+    ``term`` names the largest of "bytes", "FP32 operations", "noise".
     """
+    import torch
+
     b, grid, h, hh, c = shape
     k, c1, w, ww = grid * grid, c + 1, h, hh
     cells = b * k
     rows_in = ((ys >= 0) & (ys < h - 1)).sum(-1)
     cols_in = ((xs >= 0) & (xs < w - 1)).sum(-1)
     in_box = int((rows_in * cols_in).sum().item())
-    px_cells = cells * hh * ww
-    ins = 4 * (cells * (h * w * c1 + hh + ww + 2) + b * hh * ww * c)  # and the gradients
+    px_cells = (cells * hh if rows is None else rows) * ww
+    objs_read = object_sectors(torch, shape, ys, xs)
+    rest = 4 * (cells * (hh + ww + 2) + b * hh * ww * c)  # ys, xs, z_pres, depth_w, bg
+    grads = 4 * cells * h * w * c1 + rest  # the backward's outputs
     sums_g = 4 * b * hh * ww * (c + 2 + c)  # forward: out and sums; backward: sums and g
     fwd_ops = in_box * 9 * c1 + px_cells * (7 + 6 * c)
     bwd_ops = in_box * (9 + 10 + 8) * c1 + px_cells * (12 + 8 * c)
     normals = px_cells * c if noise_scale > 0 else 0
     t_noise = normals * NORMAL_INSTRUCTIONS / (PEAK_FP32 / 2) * 1e3
     out = {}
-    for name, nbytes, flops in (("fwd", ins + sums_g, fwd_ops), ("bwd", 2 * ins + sums_g, bwd_ops)):
+    for name, nbytes, flops in (("fwd", objs_read + rest + sums_g, fwd_ops),
+                                ("bwd", objs_read + rest + grads + sums_g, bwd_ops)):
         terms = {"bytes": nbytes / PEAK_BYTES * 1e3, "FP32 operations": flops / PEAK_FP32 * 1e3,
                  "noise": t_noise}
         term = max(terms, key=terms.get)
         out[name] = (terms[term], "bytes" if term == "bytes" else "operations", nbytes, flops,
                      term)
-    return out
+    return out, objs_read
 
 
-def windowed_bounds(shape, band_rows: int):
-    """Least times (ms) for the windowed pair, from this run's bands:
-    ``band_rows`` is the sum of the bands' lengths over all B*K cells.
-
-    Bytes: each input read once, each output written once (fp32): objs, the
-    band's rows of wy, wx, z_pres, depth_w, the bands and bg in, the canvas
-    out; the backward also reads g and writes gradients shaped as the inputs
-    (g_wy in full). The Philox noise is not counted here.
-    Operations: the kernels' products all run over the band's rows: forward
-    u = wy[band].obj and u.wx^T; the backward recomputes those and adds
-    g_u = g_paste.wx, g_obj = wy^T.g_u, g_wy = g_u.obj^T, g_wx = g_paste^T.u.
-    """
-    b, grid, h, hh, c = shape
-    k, c1, w, ww = grid * grid, c + 1, h, hh
-    cells = b * k
-    img_bytes = 4 * b * hh * ww * c
-    read = 4 * (cells * (h * w * c1 + ww * w + 2 + 2) + band_rows * h) + img_bytes
-    grads = 4 * cells * (h * w * c1 + hh * h + ww * w + 2) + img_bytes
-    fwd_fma = band_rows * c1 * (w * h + ww * w)
-    bwd_fma = fwd_fma + band_rows * c1 * (w * ww + h * w + h * w + ww * w)
-    out = {}
-    for name, nbytes, fma in (("fwd", read + img_bytes, fwd_fma),
-                              ("bwd", read + img_bytes + grads, bwd_fma)):
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * fma / PEAK_FP32 * 1e3
-        by = "bytes" if t_bytes > t_ops else "operations"
-        out[name] = (max(t_bytes, t_ops), by, nbytes, 2 * fma, by)
-    return out
+def windowed_bounds(shape, ys, xs, noise_scale, band_rows: int):
+    """``bounds`` of the row-windowed pair: the full pair's bytes (the same
+    sectors of objs), and the operations and the Philox noise of this run's
+    band rows only (``band_rows``, the bands' lengths summed over the B*K
+    cells)."""
+    return bounds(shape, ys, xs, noise_scale, rows=band_rows)
 
 
 def time_windowed(torch, render, windowed, shape, noise_scale):
     """Times of the windowed pair, its plain version and the full-canvas pair
-    on the same inputs, in turns within one call; also the sum of band rows."""
+    on the same inputs, in turns within one call (full, windowed, windowed,
+    full); the windowed forward at each rows-a-block count of
+    ROWS_PER_BLOCK_SWEEP and its backward at each cells-a-block count of
+    RENDER_CELLS_PER_BLOCK_SWEEP. Also the inputs' coordinates and the sum of
+    band rows, for the bounds."""
     b, grid, os_, canvas, c = shape
-    taps, args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 11)
-    ys = taps[1]
-    bands = windowed.compute_bands(ys, os_)
+    args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 11)
     noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
     g = torch.rand((b, canvas, canvas, c), device="cuda")
     ins = [a.clone().requires_grad_(True) for a in args]
-    out_p = windowed.render_windowed_reference(*ins, bands, noise)
-    _, sums = render._fwd(*taps, seed_t, noise_scale)
-    return {
-        "full_fwd": cuda_ms(lambda: render._fwd(*taps, seed_t, noise_scale)),
-        "fwd": cuda_ms(lambda: windowed._fwd(*args, bands, seed_t, noise_scale)),
-        "full_bwd": cuda_ms(lambda: render._bwd(*taps, seed_t, noise_scale, sums, g)),
-        "bwd": cuda_ms(lambda: windowed._bwd(*args, bands, seed_t, noise_scale, g)),
-        "plain_fwd": cuda_ms(lambda: windowed.render_windowed_reference(*args, bands, noise)),
-        "plain_bwd": cuda_ms(lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True)),
-        "bands": cuda_ms(lambda: windowed.compute_bands(ys, os_)),
-        "band_rows": int(bands[..., 1].sum().item()),
+    out_p = windowed.render_windowed_taps_reference(*ins, noise)
+    _, sums = render._fwd(*args, seed_t, noise_scale)
+    _, w_sums = windowed._fwd(*args, seed_t, noise_scale)
+    calls = {
+        "full_fwd": lambda: render._fwd(*args, seed_t, noise_scale),
+        "fwd": lambda: windowed._fwd(*args, seed_t, noise_scale),
+        "full_bwd": lambda: render._bwd(*args, seed_t, noise_scale, sums, g),
+        "bwd": lambda: windowed._bwd(*args, seed_t, noise_scale, w_sums, g),
     }
+    turns = {name: [] for name in calls}
+    for order in (("full_fwd", "fwd", "full_bwd", "bwd"), ("fwd", "full_fwd", "bwd", "full_bwd")):
+        for name in order:
+            turns[name].append(cuda_ms(calls[name]))
+    times = {name: statistics.mean(v) for name, v in turns.items()}
+    times["turns"] = turns
+    times["plain_fwd"] = cuda_ms(lambda: windowed.render_windowed_taps_reference(*args, noise))
+    times["plain_bwd"] = cuda_ms(lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True))
+    times["sweep_fwd"] = {n: cuda_ms(lambda: windowed._fwd(*args, seed_t, noise_scale,
+                                                           rows_per_block=n))
+                          for n in ROWS_PER_BLOCK_SWEEP}
+    times["sweep_bwd"] = {n: cuda_ms(lambda: windowed._bwd(*args, seed_t, noise_scale, w_sums, g,
+                                                           cells_per_block=n))
+                          for n in RENDER_CELLS_PER_BLOCK_SWEEP}
+    times["coords"] = (args[1], args[2])
+    times["band_rows"] = int(windowed.compute_bands(args[1], os_)[..., 1].sum().item())
+    return times
 
 
 ROWS_PER_BLOCK_SWEEP = (1, 2, 4, 8, 10)
@@ -361,7 +425,7 @@ def time_render(torch, render, shape, noise_scale):
     cells-a-block count of RENDER_CELLS_PER_BLOCK_SWEEP. Also returns the
     inputs' coordinates, for the bounds."""
     b, grid, os_, canvas, c = shape
-    args, _, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 11)
+    args, seed_t = render_inputs(torch, b, grid, os_, canvas, c, 11)
     noise = noise_scale * render.render_noise(seed_t, b, grid * grid, c, canvas, canvas)
     g = torch.rand((b, canvas, canvas, c), device="cuda")
     ins = [a.clone().requires_grad_(True) for a in args]
@@ -711,9 +775,46 @@ def read_launches(render, crop, windowed):
             "render_windowed_bwd": windowed.bwd_launches}
 
 
+MEMORY_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+
+class GcPauses:
+    """Records the Python garbage collector's passes while the block lasts:
+    (generation, seconds, objects collected) each."""
+
+    def __enter__(self):
+        self.passes, self.t = [], 0.0
+        gc.callbacks.append(self.callback)
+        return self
+
+    def callback(self, phase, info):
+        if phase == "start":
+            self.t = time.perf_counter()
+        else:
+            self.passes.append((info["generation"], time.perf_counter() - self.t,
+                                info["collected"]))
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self.callback)
+        return False
+
+    def summary(self) -> str:
+        full = [p for p in self.passes if p[0] == 2]
+        return (f"{len(self.passes)} passes in {sum(p[1] for p in self.passes) * 1e3:.3f} ms, "
+                f"{len(full)} of generation 2 ({sum(p[1] for p in full) * 1e3:.3f} ms)")
+
+
 def timed_steps(torch, np, name, train_step, state, batches, batch_size):
     """WARMUP_STEPS + TRAIN_STEPS train steps; returns the state, the losses
-    and the last step's metrics after checking that all is finite."""
+    and the last step's metrics after checking that all is finite.
+
+    The garbage of the earlier phases is collected before the timed steps
+    (the profiles leave millions of objects in reference cycles, whose
+    collection would otherwise land in whichever step the collector's
+    thresholds pick). Logs that collection, the collector's passes during the
+    timed steps, the allocator's counts (MEMORY_STATS) before and after them,
+    and each timed step's host time to return (the enqueue, not
+    synchronized)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -721,23 +822,65 @@ def timed_steps(torch, np, name, train_step, state, batches, batch_size):
         state, metrics = train_step(state, batches[i % 2])
         losses.append(metrics["total_loss"])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        state, metrics = train_step(state, batches[i % 2])
-        losses.append(metrics["total_loss"])
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    with GcPauses() as before_gc:
+        unreachable = gc.collect()
+    before = torch.cuda.memory_stats()
+    enqueue = []
+    with GcPauses() as in_steps:
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            state, metrics = train_step(state, batches[i % 2])
+            enqueue.append(time.perf_counter() - t1)
+            losses.append(metrics["total_loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    after = torch.cuda.memory_stats()
     losses = [v.item() for v in losses]
     notfinite = int(metrics["notfinite_updates"].item())
     log(f"{name}: {len(losses)} steps; losses {losses[0]:.2f} -> {losses[-1]:.2f}; "
         f"notfinite_updates {notfinite}")
     log(f"{name}: step {step_s * 1e3:.3f} ms, {batch_size / step_s:.1f} imgs/s "
-        f"(mean of {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up)")
+        f"(mean of {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up); host time to return each "
+        f"step: " + ", ".join(f"{t * 1e3:.3f}" for t in enqueue) + " ms")
+    log(f"{name}: allocator before -> after the timed steps: " + ", ".join(
+        f"{k} {before.get(k, 0)} -> {after.get(k, 0)}" for k in MEMORY_STATS))
+    log(f"{name}: gc.collect() before the timed steps: {unreachable} unreachable objects in "
+        f"{before_gc.passes[-1][1] * 1e3:.3f} ms; collector during the timed steps: "
+        f"{in_steps.summary()}")
     if not all(np.isfinite(losses)):
         fail(f"{name}: non-finite loss {losses}")
     if notfinite != 0:
         fail(f"{name}: {notfinite} updates were skipped as non-finite")
     return state, losses
+
+
+class CountInterpMatrix:
+    """Counts the calls of kernels/crop.py::interp_matrix (the dense
+    interpolation weights) under every name the port's modules bind it to,
+    while the block lasts."""
+
+    def __enter__(self):
+        from split_vae_torch.kernels import crop
+
+        self.calls, original = 0, crop.interp_matrix
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return original(*args, **kwargs)
+
+        self.bound = [(m, k) for m in list(sys.modules.values())
+                      if getattr(m, "__name__", "").startswith("split_vae_torch")
+                      for k, v in list(vars(m).items()) if v is original]
+        for m, k in self.bound:
+            setattr(m, k, counted)
+        self.original = original
+        return self
+
+    def __exit__(self, *exc):
+        for m, k in self.bound:
+            setattr(m, k, self.original)
+        return False
 
 
 def log_profile(torch, name, train_step, state, batch):
@@ -775,8 +918,12 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
         f"{'row-windowed' if windowed_render else 'full-canvas'} render): B={cfg.batch_size}, "
         f"{sum(p.numel() for p in model.parameters())} params")
     reset_launches(render, crop, windowed)
-    state, losses = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
+    with CountInterpMatrix() as dense:
+        state, losses = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
     launches = read_launches(render, crop, windowed)
+    if dense.calls:
+        fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls "
+             f"of interp_matrix)")
     used, unused = ("render_windowed", "render") if windowed_render else ("render",
                                                                           "render_windowed")
     for kernel, n in launches.items():
@@ -786,7 +933,7 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
                      f"{used} pair")
         elif n < len(losses) or (kernel.startswith("crop") and n != len(losses)):
             fail(f"{name}: {kernel} kernel launched {n} times in {len(losses)} steps")
-    log(f"{name}: launches {launches}; peak device memory "
+    log(f"{name}: no interp_matrix in the train steps; launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     state = log_profile(torch, name, train_step, state, batches[0])
 
@@ -845,6 +992,11 @@ def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    parser.add_argument("--parent", default=None,
+                        help="another checkout: also hold the full-canvas render at C = 1 and 3 "
+                             "bit-equal to the kernel built from its csrc/render.cu")
+    parent = parser.parse_args().parent
     if not os.path.isdir(os.path.join(HERE, "split_vae_torch")):
         fail("split_vae_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -899,10 +1051,24 @@ def main() -> None:
     for i, (shape, noise) in enumerate(render_cases):
         keep("render", *compare_kernels(torch, render, shape, noise, seed=i + 1))
     keep("render", *compare_kernels(torch, render, cfg5_shape, 0.01, seed=6, z_scale=10.0))
-    keep("render", *compare_kernels(torch, render, ragged_shape[:4] + (1,), 0.01, seed=7))
+    # Other channel counts: C = 1 and 3 have instances of their own, 2 and 4
+    # take the general one.
+    other_c = [ragged_shape[:4] + (c,) for c in (1, 2, 4)]
+    for i, shape in enumerate(other_c):
+        keep("render", *compare_kernels(torch, render, shape, 0.01, seed=7 + i))
     for i, (shape, noise) in enumerate(render_cases + ((p3_shape, 0.0),)):
-        keep("render_windowed", *compare_windowed(torch, render, windowed, shape, noise,
-                                                  seed=i + 1))
+        keep("render_windowed", *compare_kernels(torch, render, shape, noise, seed=i + 1,
+                                                 windowed=windowed))
+    keep("render_windowed", *compare_kernels(torch, render, cfg5_shape, 0.01, seed=6,
+                                             z_scale=10.0, windowed=windowed))
+    for i, shape in enumerate(other_c):
+        keep("render_windowed", *compare_kernels(torch, render, shape, 0.01, seed=7 + i,
+                                                 windowed=windowed))
+    # A 66-row canvas: find_band takes three ballots of 32 rows.
+    keep("render_windowed", *compare_kernels(torch, render, (8, 4, 44, 66, 3), 0.01, seed=10,
+                                             windowed=windowed))
+    if parent is not None:
+        compare_with_parent(torch, render, parent)
     # The CPU path draws the same noise field with a numpy twin of the kernels'
     # Philox; the two agree up to the float32 math libraries (log, cos, sqrt).
     seed_t = torch.tensor([12345], dtype=torch.int32, device="cuda")
@@ -921,7 +1087,10 @@ def main() -> None:
     times, bound, chain_ms = {}, {}, {}
     for label, shape in (("P1/P2", cfg5_shape), ("P3", p3_shape)):
         t = time_render(torch, render, shape, 0.01)
-        bd = bounds(shape, *t["coords"], 0.01)
+        bd, objs_read = bounds(shape, *t["coords"], 0.01)
+        log(f"render bounds at {label}: objs read {objs_read / 1e6:.2f} MB of "
+            f"{4 * shape[0] * shape[1] ** 2 * shape[2] ** 2 * (shape[4] + 1) / 1e6:.2f} "
+            f"(32-byte sectors of the in-object taps)")
         for name in ("fwd", "bwd"):
             tb, by, nbytes, flops, term = bd[name]
             log(f"render {name} at {label} {shape}: kernel {t[name]:.4f} ms ({tb / t[name]:.3f} of "
@@ -940,16 +1109,25 @@ def main() -> None:
                 bound["render_" + name] = bd[name]
     for label, shape in (("P4", cfg5_shape), ("28 on 48", p3_shape)):
         t = time_windowed(torch, render, windowed, shape, 0.01)
-        bd = windowed_bounds(shape, t["band_rows"])
+        bd, objs_read = windowed_bounds(shape, *t["coords"], 0.01, t["band_rows"])
         cells = shape[0] * shape[1] ** 2
         log(f"windowed render at {label} {shape}: bands of {t['band_rows'] / cells:.2f} rows a "
-            f"cell of {shape[3]}; compute_bands {t['bands']:.4f} ms")
+            f"cell of {shape[3]}; objs read {objs_read / 1e6:.2f} MB")
         for name in ("fwd", "bwd"):
-            tb, by, nbytes, flops, _ = bd[name]
-            log(f"windowed render {name} at {label}: kernel {t[name]:.4f} ms "
-                f"({t[name] / t['full_' + name]:.3f} of the full-canvas kernel's "
-                f"{t['full_' + name]:.4f} ms in the same turns), plain {t['plain_' + name]:.4f} "
-                f"ms, bound {tb:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            tb, by, nbytes, flops, term = bd[name]
+            log(f"windowed render {name} at {label}: kernel {t[name]:.4f} ms ({tb / t[name]:.3f} "
+                f"of the bound; turns " + ", ".join(f"{v:.4f}" for v in t["turns"][name])
+                + f"), {t[name] / t['full_' + name]:.3f} of the full-canvas kernel's "
+                f"{t['full_' + name]:.4f} ms in the same turns (" + ", ".join(
+                    f"{v:.4f}" for v in t["turns"]["full_" + name])
+                + f"), plain {t['plain_' + name]:.4f} ms, bound {tb:.4f} ms by {term} (bytes "
+                f"{nbytes / 1e6:.1f} MB = {nbytes / PEAK_BYTES * 1e3:.4f} ms, {flops / 1e9:.3f} "
+                f"GFLOP = {flops / PEAK_FP32 * 1e3:.4f} ms)")
+        log(f"windowed rows a block (forward ms; the wrapper takes {windowed.ROWS_PER_BLOCK}): "
+            + ", ".join(f"{n}: {v:.4f}" for n, v in t["sweep_fwd"].items()))
+        log(f"windowed cells a block (backward ms; the wrapper takes "
+            f"{windowed.CELLS_PER_BLOCK}): "
+            + ", ".join(f"{n}: {v:.4f}" for n, v in t["sweep_bwd"].items()))
         if label == "P4":
             for name in ("fwd", "bwd"):
                 times["render_windowed_" + name] = (t[name], t["plain_" + name], None)

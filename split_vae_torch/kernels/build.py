@@ -24,7 +24,7 @@ import torch
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PACKAGE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build")
-_HEADERS = ("tile_gemm.cuh", "philox.cuh")
+_HEADERS = ("paste_taps.cuh", "philox.cuh")
 NAMES = ("render", "crop", "render_windowed")
 
 

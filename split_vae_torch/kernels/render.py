@@ -20,8 +20,9 @@ coordinate's two clamped taps coincide its row or column pastes exactly 0).
 What bounds the pair on an H100 SXM (LG-SPAIR config #5: B=256, K=16, 32-px
 objects with 3+1 channels, 48-px canvases, fp32) is the render noise: 28.3 M
 Philox normals a call, each 111 instructions a lane (sm_90a SASS), against
-~95 MB forward and ~170 MB backward (28 and 51 us at 3.35 TB/s) and a few
-hundred MFLOP. ``chip_smoke.py::bounds`` has the three terms.
+~57 MB forward and ~133 MB backward (17 and 40 us at 3.35 TB/s; of the
+objects only the sectors that random boxes' taps read, ~30 of 67 MB) and a
+few hundred MFLOP. ``chip_smoke.py::bounds`` has the three terms.
 
 Design (``csrc/render.cu``): the forward takes a thread a canvas pixel, walks
 the cells in order with the sums in registers, reads the four taps straight
@@ -37,6 +38,11 @@ On a CPU tensor the wrapper computes ``render_taps_reference`` (with the same
 noise field, from a numpy Philox) and autograd through it; on a CUDA tensor it
 launches the kernels or raises. ``render_reference`` is the dense plain form
 over given weights, which the tests hold against the Pallas kernels.
+
+Channels: the kernels take any C from 1 to MAX_CHANNELS, as the Pallas kernels
+take any ``num_channel``; C = 1 and 3 run instances of their own (8- and
+16-byte pixel accesses), any other C a general one that loads channel by
+channel (``csrc/paste_taps.cuh``).
 """
 
 from __future__ import annotations
@@ -61,6 +67,10 @@ bwd_launches = 0
 # the sweep in chip_smoke.py::time_render (PERF.md).
 ROWS_PER_BLOCK = 8
 CELLS_PER_BLOCK = 16
+# The most colour channels the kernels take (csrc/paste_taps.cuh::
+# kMaxChannels): C = 1 and 3 have instances of their own, any other C up to
+# this one runs the general instance, whose per-channel arrays have this size.
+MAX_CHANNELS = 8
 
 _EPS = 1e-8
 _lib = None
@@ -229,8 +239,9 @@ def _shapes(objs, ys, xs, z_pres, depth_w, bg):
     for name, t in zip(_NAMES[1:], (ys, xs, z_pres, depth_w, bg)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name}: expected shape {want[name]}, got {tuple(t.shape)}")
-    if c1 - 1 not in (1, 3):
-        raise ValueError(f"render kernels take 1 or 3 colour channels, got {c1 - 1}")
+    if not 1 <= c1 - 1 <= MAX_CHANNELS:
+        raise ValueError(f"render kernels take 1 to MAX_CHANNELS = {MAX_CHANNELS} colour "
+                         f"channels, got {c1 - 1}")
     return b, k, h, w, hh, ww, c1 - 1
 
 

@@ -17,7 +17,6 @@ from torch import nn
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.kernels import render as render_kernels
 from split_vae_torch.kernels import render_windowed as windowed_kernels
-from split_vae_torch.kernels.crop import interp_matrix
 from split_vae_torch.nn.common import Conv, Dense, flatten
 from split_vae_torch.nn.pixel_shuffle import Resize2xConv
 from split_vae_torch.ops.distributions import concrete_binary_pre_sigmoid_sample, reparameterize
@@ -444,13 +443,9 @@ def fused_decode_render(decoder: SpairDecoder, noise: Noise, z_what, z_where, z_
     bg_img = torch.broadcast_to(torch.as_tensor(bg_recon, dtype=torch.float32,
                                                 device=concat.device),
                                 (b, image_hw[0], image_hw[1], num_channel))
-    if windowed:
-        wy, wx = interp_matrix(ys, concat.shape[2]), interp_matrix(xs, concat.shape[3])
-        x_recon = windowed_kernels.fused_paste_render_windowed(
-            concat, wy, wx, zp, wd, bg_img, noise.seed(), ys, noise_scale)
-    else:
-        x_recon = render_kernels.fused_paste_render(concat, ys, xs, zp, wd, bg_img,
-                                                    noise.seed(), noise_scale)
+    render = (windowed_kernels.fused_paste_render_windowed if windowed
+              else render_kernels.fused_paste_render)
+    x_recon = render(concat, ys, xs, zp, wd, bg_img, noise.seed(), noise_scale)
     return obj_ru, obj_ra, bbox, x_recon
 
 

@@ -7,7 +7,7 @@ clipping semantics (spair/utils.py:229-246): samples outside the image net to
 zero. Geometry stays f32. The crop and the fused render take the sample
 coordinates (``crop_sample_coords``, ``paste_sample_coords``) and gather the
 two taps of each row and column in their kernels; the dense matrices are
-built here only for the plain forms and the row-windowed render.
+built here only for the plain forms.
 """
 
 from __future__ import annotations
@@ -129,7 +129,7 @@ def paste_interp_weights_ys(z_where: torch.Tensor, out_hw: Tuple[int, int],
                             in_hw: Tuple[int, int], cell_ratio: float = DEFAULT_CELL_RATIO,
                             eps: float = 1e-5):
     """paste_interp_weights and the row sample coordinates ys [B,K,H], which
-    locate each cell's paste support (the windowed render needs them)."""
+    locate each cell's paste support (the windowed render's bands)."""
     ys, xs, bbox = paste_sample_coords(z_where, out_hw, in_hw, cell_ratio, eps)
     return _interp_matrix(ys, in_hw[0]), _interp_matrix(xs, in_hw[1]), bbox, ys
 

@@ -1,5 +1,7 @@
 """The fused render's plain versions (split_vae_torch.kernels.render) against
-the JAX package's Pallas kernels (interpret mode) and unfused render.
+the JAX package's Pallas kernels (interpret mode) and unfused render; at 2 and
+4 colour channels also the row-windowed wrapper's, and both pairs' shape
+checks for every channel count up to MAX_CHANNELS.
 
 The port's render takes the paste's sample coordinates ys, xs in place of
 the dense weights wy, wx: ``render_taps_reference`` (the dense weights from
@@ -19,6 +21,8 @@ none. There alpha is clipped up from 0 to 1e-8, so the pixel's importance is
 1e-8 * z_pres * depth_w and the gradient it would carry is below 1e-7.
 """
 
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -28,6 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from split_vae_torch.kernels import render as tr  # noqa: E402
+from split_vae_torch.kernels import render_windowed as tw  # noqa: E402
 from split_vae_torch.ops import stn as tstn  # noqa: E402
 from split_vae_tpu.nn.spair_nets import render as jax_render  # noqa: E402
 from split_vae_tpu.ops.pallas.render_fused import fused_paste_render  # noqa: E402
@@ -389,3 +394,72 @@ def test_kernel_entry_points_take_no_cpu_tensor():
     sums = torch.zeros((objs.shape[0], 5, s, s))
     with pytest.raises(ValueError, match="CUDA"):
         tr._bwd(*args, sums, torch.zeros_like(bg))
+
+
+# Channel counts that the kernels run in their general instance (C = 1 and 3
+# have instances of their own), at a small ragged shape: B, grid, object
+# size, canvas.
+OTHER_CHANNELS = (2, 4)
+CHANNEL_SHAPE = (2, 3, 10, 15)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_at_channels(c):
+    """The JAX package's ``render_fused.py::fused_paste_render`` with
+    ``num_channel`` c, in interpret mode at noise 0, fed the dense weights of
+    the port's paste coordinates: (inputs, cotangent, forward, the gradients
+    of objs, ys, xs, z_pres, depth_w, bg)."""
+    b, g, os_, s = CHANNEL_SHAPE
+    objs, z_where, z_pres, depth_w, bg = _inputs((b, g, os_, s, c), 17 + c)
+    ys, xs, _ = tstn.paste_sample_coords(torch.from_numpy(z_where), (s, s), (os_, os_))
+    arrays = [objs, ys.numpy(), xs.numpy(), z_pres, depth_w, bg]
+
+    def jax_fn(o, y, x, zp, wd, bgi):
+        return fused_paste_render(o, jax_interp_matrix(y, os_), jax_interp_matrix(x, os_), zp, wd,
+                                  bgi, jnp.int32(0), 0.0, True)
+
+    want = np.asarray(jax_fn(*map(jnp.asarray, arrays)))
+    cot = np.random.RandomState(18).randn(*want.shape).astype(np.float32)
+    jg = jax.grad(lambda *a: jnp.sum(jax_fn(*a) * cot), argnums=tuple(range(6)))(
+        *map(jnp.asarray, arrays))
+    return arrays, cot, want, [np.asarray(t) for t in jg]
+
+
+@pytest.mark.parametrize("pair", ["full", "windowed"])
+@pytest.mark.parametrize("c", OTHER_CHANNELS)
+def test_plain_renders_match_pallas_at_other_channel_counts(c, pair):
+    """The full-canvas and the row-windowed wrappers on CPU tensors at noise 0
+    against the JAX full-canvas kernel at c channels (the windowed function
+    differs from it by 1e-16 terms): forward and the six gradients."""
+    seed = torch.zeros(1, dtype=torch.int32)
+    wrapper = tr.fused_paste_render if pair == "full" else tw.fused_paste_render_windowed
+    arrays, cot, want, jg = _pallas_at_channels(c)
+    assert want.shape == (CHANNEL_SHAPE[0], CHANNEL_SHAPE[3], CHANNEL_SHAPE[3], c)
+    got, tg = _torch_grads(lambda *a: wrapper(*a, seed, 0.0), arrays, cot)
+    np.testing.assert_allclose(got, want, atol=FWD_ATOL)
+    for n, a, bb in zip(("objs", "ys", "xs", "z_pres", "depth_w", "bg"), tg, jg):
+        np.testing.assert_allclose(a, bb, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=f"gradient of {n} at {c} channels")
+
+
+def _channel_inputs(c):
+    b, g, os_, s = CHANNEL_SHAPE
+    objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a)
+                                          for a in _inputs((b, g, os_, s, c), 19))
+    ys, xs, _ = tstn.paste_sample_coords(z_where, (s, s), (os_, os_))
+    return objs, ys, xs, z_pres, depth_w, bg
+
+
+@pytest.mark.parametrize("c", (1, 2, 3, 4, tr.MAX_CHANNELS))
+def test_shape_checks_take_any_channel_count_up_to_the_cap(c):
+    """Both render pairs' shape checks, on CPU tensors: every C from 1 to
+    MAX_CHANNELS passes."""
+    b, g, os_, s = CHANNEL_SHAPE
+    for module in (tr, tw):
+        assert module._shapes(*_channel_inputs(c)) == (b, g * g, os_, os_, s, s, c)
+
+
+def test_shape_checks_refuse_channels_beyond_the_cap():
+    for module in (tr, tw):
+        with pytest.raises(ValueError, match="MAX_CHANNELS"):
+            module._shapes(*_channel_inputs(tr.MAX_CHANNELS + 1))

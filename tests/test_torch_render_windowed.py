@@ -1,6 +1,11 @@
-"""The row-windowed render's plain version (split_vae_torch.kernels.render_windowed)
+"""The row-windowed render's plain versions (split_vae_torch.kernels.render_windowed)
 against the JAX package's windowed Pallas kernel (interpret mode) and against
-the port's full-canvas plain version.
+the port's full-canvas plain version (at 2 and 4 colour channels,
+test_torch_render.py holds it to the JAX full-canvas Pallas kernel). The
+wrapper takes the paste's sample coordinates ys, xs;
+``render_windowed_taps_reference`` (its CPU path) is also held to the dense
+``render_windowed_reference``, and ``compute_bands`` (the band rule the
+kernels' find_band is held to on the card) to the rule written row by row.
 
 Tolerances: forward atol 3e-5 and gradients rtol 1e-3, atol 3e-4 against the
 Pallas kernel (tests/test_render_windowed.py:50,80: fp32 sums in another
@@ -45,9 +50,9 @@ def _inputs(os_, s, seed):
 
 def _port_windowed(os_, s, noise_scale=0.0, seed=0):
     def fn(objs, z_where, z_pres, depth_w, bg):
-        wy, wx, _, ys = tstn.paste_interp_weights_ys(z_where, (s, s), (os_, os_))
-        return tw.fused_paste_render_windowed(objs, wy, wx, z_pres, depth_w, bg,
-                                              torch.tensor([seed], dtype=torch.int32), ys,
+        ys, xs, _ = tstn.paste_sample_coords(z_where, (s, s), (os_, os_))
+        return tw.fused_paste_render_windowed(objs, ys, xs, z_pres, depth_w, bg,
+                                              torch.tensor([seed], dtype=torch.int32),
                                               noise_scale)
     return fn
 
@@ -145,25 +150,26 @@ def test_empty_support_gives_an_empty_band_and_the_closed_form():
     ys = torch.full((1, 2, s), -3.0)
     assert torch.equal(tw.compute_bands(ys, os_), torch.zeros(1, 2, 2, dtype=torch.int32))
     objs = torch.from_numpy(rng.rand(1, 2, os_, os_, C + 1).astype(np.float32))
-    wy = torch.zeros(1, 2, s, os_)
-    wx = torch.from_numpy(rng.rand(1, 2, s, os_).astype(np.float32))
+    xs = torch.from_numpy(rng.uniform(-1.0, os_, (1, 2, s)).astype(np.float32))
     zp, wd = torch.tensor([[0.3, 0.9]]), torch.tensor([[1.2, 0.7]])
     bg = torch.from_numpy(rng.rand(1, s, s, C).astype(np.float32))
-    got = tw.fused_paste_render_windowed(objs, wy, wx, zp, wd, bg,
-                                         torch.zeros(1, dtype=torch.int32), ys, 0.0)
-    want = tr.render_reference(objs, wy, wx, zp, wd, bg)
+    got = tw.fused_paste_render_windowed(objs, ys, xs, zp, wd, bg,
+                                         torch.zeros(1, dtype=torch.int32), 0.0)
+    want = tr.render_taps_reference(objs, ys, xs, zp, wd, bg)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-7)
 
 
 def test_g_wy_is_zero_outside_the_band():
+    """The dense plain form (held against the Pallas kernel) gives wy no
+    gradient outside the bands."""
     os_, s = 32, 48
     objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a) for a in _inputs(os_, s, 7))
     wy, wx, _, ys = tstn.paste_interp_weights_ys(z_where, (s, s), (os_, os_))
     wy.requires_grad_(True)
-    out = tw.fused_paste_render_windowed(objs, wy, wx, z_pres, depth_w, bg,
-                                         torch.zeros(1, dtype=torch.int32), ys, 0.0)
+    bands = tw.compute_bands(ys, os_)
+    out = tw.render_windowed_reference(objs, wy, wx, z_pres, depth_w, bg, bands)
     (g_wy,) = torch.autograd.grad(out.square().sum(), wy)
-    inside = tw.band_mask(tw.compute_bands(ys, os_), s)
+    inside = tw.band_mask(bands, s)
     assert torch.count_nonzero(g_wy[~inside]) == 0
     assert torch.count_nonzero(g_wy[inside]) > 0
 
@@ -187,13 +193,12 @@ def test_noise_matches_full_canvas_version_with_the_same_field():
 def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     os_, s = 30, 45
     objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a) for a in _inputs(os_, s, 8))
-    wy, wx, _, ys = tstn.paste_interp_weights_ys(z_where, (s, s), (os_, os_))
+    ys, xs, _ = tstn.paste_sample_coords(z_where, (s, s), (os_, os_))
     seed = torch.tensor([5], dtype=torch.int32)
     before = (tw.fwd_launches, tw.bwd_launches, tr.fwd_launches, tr.bwd_launches)
-    got = tw.fused_paste_render_windowed(objs, wy, wx, z_pres, depth_w, bg, seed, ys, 0.01)
-    want = tw.render_windowed_reference(objs, wy, wx, z_pres, depth_w, bg,
-                                        tw.compute_bands(ys, os_),
-                                        0.01 * tr.render_noise(seed, B, K, C, s, s))
+    got = tw.fused_paste_render_windowed(objs, ys, xs, z_pres, depth_w, bg, seed, 0.01)
+    want = tw.render_windowed_taps_reference(objs, ys, xs, z_pres, depth_w, bg,
+                                             0.01 * tr.render_noise(seed, B, K, C, s, s))
     assert torch.equal(got, want)
     assert (tw.fwd_launches, tw.bwd_launches, tr.fwd_launches, tr.bwd_launches) == before
 
@@ -203,10 +208,13 @@ def test_cuda_tensors_never_take_the_plain_version():
     card the kernel entry points refuse CPU tensors."""
     os_, s = 8, 12
     objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a) for a in _inputs(os_, s, 2))
-    wy, wx, _, ys = tstn.paste_interp_weights_ys(z_where, (s, s), (os_, os_))
+    ys, xs, _ = tstn.paste_sample_coords(z_where, (s, s), (os_, os_))
+    args = (objs, ys, xs, z_pres, depth_w, bg, torch.zeros(1, dtype=torch.int32), 0.0)
     with pytest.raises(ValueError, match="CUDA"):
-        tw._fwd(objs, wy, wx, z_pres, depth_w, bg, tw.compute_bands(ys, os_),
-                torch.zeros(1, dtype=torch.int32), 0.0)
+        tw._fwd(*args)
+    sums = torch.zeros((B, C + 2, s, s))
+    with pytest.raises(ValueError, match="CUDA"):
+        tw._bwd(*args, sums, torch.zeros_like(bg))
 
 
 @pytest.mark.parametrize("model_kind,object_size", [("lg_spair", 16), ("lg_glimpse_spair", 12)])
@@ -241,3 +249,96 @@ def test_train_step_through_the_windowed_render(model_kind, object_size):
     for a, b in zip(p_win, p_full):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
     assert (tw.fwd_launches, tw.bwd_launches, tr.fwd_launches, tr.bwd_launches) == before
+
+
+@pytest.mark.parametrize("z_scale", [1.0, 10.0])
+def test_taps_version_matches_dense_version(z_scale):
+    """``render_windowed_taps_reference`` against ``render_windowed_reference``
+    over the dense weights of the same coordinates: the forward and the
+    gradients of objs, z_pres, depth_w, bg agree, and those of ys and xs are
+    the dense g_wy and g_wx carried through interp_matrix (-1 on a row's
+    first tap, +1 on its second, 0 where the two coincide)."""
+    os_, s = 32, 48
+    objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a) for a in _inputs(os_, s, 21))
+    ys, xs, _ = tstn.paste_sample_coords(z_scale * z_where, (s, s), (os_, os_))
+    noise = 0.01 * tr.render_noise(torch.tensor([3], dtype=torch.int32), B, K, C, s, s)
+    cot = torch.from_numpy(np.random.RandomState(22).randn(B, s, s, C).astype(np.float32))
+    taps = [t.clone().requires_grad_(True) for t in (objs, ys, xs, z_pres, depth_w, bg)]
+    out_t = tw.render_windowed_taps_reference(*taps, noise)
+    g_t = torch.autograd.grad(out_t, taps, cot)
+    dense = [t.clone().requires_grad_(True)
+             for t in (objs, tr.interp_matrix(ys, os_), tr.interp_matrix(xs, os_), z_pres,
+                       depth_w, bg)]
+    out_d = tw.render_windowed_reference(*dense, tw.compute_bands(ys, os_), noise)
+    g_d = torch.autograd.grad(out_d, dense, cot)
+    assert torch.equal(out_t, out_d)
+
+    def through_taps(g_w, u, n):
+        i0 = torch.clamp(torch.floor(u), 0.0, n - 1.0).long()[..., None]
+        i1 = torch.clamp(torch.floor(u) + 1.0, 0.0, n - 1.0).long()[..., None]
+        return (g_w.gather(-1, i1) - g_w.gather(-1, i0))[..., 0]
+
+    want = [g_d[0], through_taps(g_d[1], ys, os_), through_taps(g_d[2], xs, os_), *g_d[3:]]
+    for n, a, b in zip(("objs", "ys", "xs", "z_pres", "depth_w", "bg"), g_t, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"gradient of {n}")
+
+
+def _band_case(name):
+    """Row coordinates for the band rule: random boxes, boxes at z_where x10,
+    cells with no supported row, each on a 48-row canvas (two ballots of 32
+    rows) or a 70-row one (three)."""
+    kind, s = name.rsplit("_", 1)
+    s = int(s)
+    os_ = 2 * s // 3
+    z_where = torch.from_numpy(np.random.RandomState(23).randn(4, GRID, GRID, 4)
+                               .astype(np.float32))
+    if kind == "empty":
+        ys = torch.from_numpy(np.random.RandomState(24).choice(
+            [-50.0, -1.0, os_, 1e6], (4, K, s)).astype(np.float32))
+        return ys, os_
+    scale = 10.0 if kind == "x10" else 1.0
+    ys, _, _ = tstn.paste_sample_coords(scale * z_where, (s, s), (os_, os_))
+    return ys, os_
+
+
+def _rule_bands(ys, os_):
+    """The band rule cell by cell: [first - 1, last + 2) around the supported
+    rows (coordinate in (-1, os_)), clipped to the canvas; (0, 0) for none."""
+    hh = ys.shape[-1]
+    out = np.zeros(ys.shape[:-1] + (2,), np.int32)
+    for idx in np.ndindex(*ys.shape[:-1]):
+        rows = [y for y in range(hh) if -1.0 < float(ys[idx + (y,)]) < os_]
+        if rows:
+            start, end = max(rows[0] - 1, 0), min(rows[-1] + 2, hh)
+            out[idx] = (start, end - start)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("name", ["random_48", "x10_48", "empty_48", "random_70", "x10_70"])
+def test_compute_bands_follows_the_rule(name):
+    """``compute_bands`` gives the rule's bands, row by row, on random, x10
+    and empty-support coordinates, over two and three 32-row ballots."""
+    ys, os_ = _band_case(name)
+    want = _rule_bands(ys, os_)
+    assert torch.equal(tw.compute_bands(ys, os_), want)
+    if name.startswith("empty"):
+        assert not want.any()
+    else:
+        assert want[..., 1].min() < want[..., 1].max(), "the case has bands of one length only"
+
+
+@pytest.mark.parametrize("z_scale", [1.0, 10.0])
+def test_g_ys_is_zero_outside_the_band(z_scale):
+    """Through the wrapper (CPU: the plain version), ys gets no gradient on
+    the rows outside each band, and some inside."""
+    os_, s = 32, 48
+    objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a) for a in _inputs(os_, s, 7))
+    ys, xs, _ = tstn.paste_sample_coords(z_scale * z_where, (s, s), (os_, os_))
+    ys.requires_grad_(True)
+    out = tw.fused_paste_render_windowed(objs, ys, xs, z_pres, depth_w, bg,
+                                         torch.tensor([9], dtype=torch.int32), 0.01)
+    (g_ys,) = torch.autograd.grad(out.square().sum(), ys)
+    inside = tw.band_mask(tw.compute_bands(ys.detach(), os_), s)
+    assert torch.count_nonzero(g_ys[~inside]) == 0
+    assert torch.count_nonzero(g_ys[inside]) > 0
