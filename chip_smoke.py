@@ -16,7 +16,13 @@ no hand-written kernel on it. The paths:
   P4  P1's configuration, model and seed with the row-windowed render
       selected in place of the full-canvas one;
   P5  LGVae (SPLIT-VAE) at BASELINE config #2 (CelebA 64x64, B=64, patch 8,
-      latents 128/128), uint8 batches.
+      latents 128/128), uint8 batches;
+  P6  config #5 through the CLI, split_vae_torch.cli.spair_main.main with the
+      reference command's flags and -synthetic_data (2048 MultiCUB canvases
+      made by the native generator, two test splits of 256): 40 steps with
+      evals and checkpoints every 20, then --resume to step 60;
+  P7  config #2 through split_vae_torch.cli.vae_main.main (synthetic CelebA
+      64x64), the same schedule.
 
 Phases, each of which must pass:
 
@@ -58,7 +64,16 @@ Phases, each of which must pass:
      of interp_matrix: no dense interpolation weights), the allocator's
      counts and the garbage collector's passes around them, a profile of
      three more steps (device time by kernel family, the device's idle share),
-     and one eval step; P4's losses beside P1's;
+     and one eval step; P4's losses beside P1's; then P6 and P7, each in a
+     temporary directory (working directory, data_dir, output_dir): the
+     records at steps 20, 40 and, after the resume, 60 under train/ and each
+     test prefix, all finite, no update skipped, "Resumed from ... at step
+     40", at most 3 checkpoints and the final weights of each run; on P6 the
+     launch counts (0 before, read after both runs: the render pair and the
+     crop's backward once a train step) and no interp_matrix call with
+     autograd on; the checkpoints' write times and sizes, the peak device
+     memory, and the loop's train/imgs_per_sec at step 40 beside P1's (P5's)
+     timed rate;
   6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -69,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import io
 import json
 import os
 import statistics
@@ -806,7 +822,7 @@ class GcPauses:
 
 def timed_steps(torch, np, name, train_step, state, batches, batch_size):
     """WARMUP_STEPS + TRAIN_STEPS train steps; returns the state, the losses
-    and the last step's metrics after checking that all is finite.
+    and the timed steps' imgs/s after checking that all is finite.
 
     The garbage of the earlier phases is collected before the timed steps
     (the profiles leave millions of objects in reference cycles, whose
@@ -852,21 +868,28 @@ def timed_steps(torch, np, name, train_step, state, batches, batch_size):
         fail(f"{name}: non-finite loss {losses}")
     if notfinite != 0:
         fail(f"{name}: {notfinite} updates were skipped as non-finite")
-    return state, losses
+    return state, losses, batch_size / step_s
 
 
 class CountInterpMatrix:
     """Counts the calls of kernels/crop.py::interp_matrix (the dense
     interpolation weights) under every name the port's modules bind it to,
-    while the block lasts."""
+    while the block lasts: ``calls`` with autograd on (a train step's),
+    ``no_grad_calls`` under ``torch.no_grad`` (the eval step's unfused
+    forward, the reference's fused=False)."""
 
     def __enter__(self):
+        import torch
+
         from split_vae_torch.kernels import crop
 
-        self.calls, original = 0, crop.interp_matrix
+        self.calls, self.no_grad_calls, original = 0, 0, crop.interp_matrix
 
         def counted(*args, **kwargs):
-            self.calls += 1
+            if torch.is_grad_enabled():
+                self.calls += 1
+            else:
+                self.no_grad_calls += 1
             return original(*args, **kwargs)
 
         self.bound = [(m, k) for m in list(sys.modules.values())
@@ -902,7 +925,7 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
     with the launch counts set to 0 before and read after, a profile, one eval
     step. ``windowed_render`` takes the row-windowed render pair, and then the
     full-canvas pair must not be launched. Returns the launch counts of the
-    train steps and their losses."""
+    train steps, their losses and the timed steps' imgs/s."""
     from split_vae_torch.core.state import create_train_state
     from split_vae_torch.models.spair import get_spair_model
     from split_vae_torch.train.optim import spair_optimizer
@@ -919,7 +942,8 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
         f"{sum(p.numel() for p in model.parameters())} params")
     reset_launches(render, crop, windowed)
     with CountInterpMatrix() as dense:
-        state, losses = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
+        state, losses, rate = timed_steps(torch, np, name, train_step, state, batches,
+                                          cfg.batch_size)
     launches = read_launches(render, crop, windowed)
     if dense.calls:
         fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls "
@@ -949,13 +973,14 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
     log(f"{name} eval: total_loss {ev['total_loss']:.2f}, count_acc {ev['count_acc']:.4f}, "
         f"MAE test {ev['MAE test']:.4f}, MAPE_nonzero test {ev['MAPE_nonzero test']:.2f}, "
         f"MAPE test {ev['MAPE test']:.4g}")
-    return launches, losses
+    return launches, losses, rate
 
 
 def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
     """The LGVae main path at full width: train steps on uint8 batches, a
     profile, one eval step. No hand-written kernel lies on it; the launch
-    counts are read all the same and returned."""
+    counts are read all the same and returned, with the losses and the
+    timed steps' imgs/s."""
     from split_vae_torch.core.state import create_train_state
     from split_vae_torch.models.vae import get_vae_model
     from split_vae_torch.train.optim import vae_optimizer
@@ -971,7 +996,7 @@ def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
         f"{cfg.global_latent_dims}/{cfg.local_latent_dims}, beta {cfg.beta}): "
         f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
     reset_launches(render, crop, windowed)
-    state, losses = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
+    state, losses, rate = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
     launches = read_launches(render, crop, windowed)
     if any(launches.values()):
         fail(f"{name}: a SPAIR kernel was launched on the LGVae path: {launches}")
@@ -988,7 +1013,139 @@ def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
         fail(f"{name}: eval x_mean {tuple(out.x_mean.shape)}, images {tuple(images.shape)}")
     log(f"{name} eval: total_loss {ev['total_loss']:.2f}, x_recon_loss {ev['x_recon_loss']:.2f}, "
         f"x_hat_recon_loss {ev['x_hat_recon_loss']:.2f}, total_kl_loss {ev['total_kl_loss']:.4f}")
-    return launches, losses
+    return launches, losses, rate
+
+
+# The reference command of config #5 (split_vae_tpu/cli/spair_main.py:3-7) and
+# the config-#2 flags (bench.py:81-82), each without its step count.
+CONFIG5_ARGV = ["--dataset", "cub_ckb_rot_6", "--z_bg_beta", "1", "--patch_size", "8",
+                "--latent_size", "64", "--bg_latent_size", "64", "--local_latent_size", "64",
+                "--model", "lg_spair", "-split_z_l", "--z_what_beta", "0.5", "-concat_z_what",
+                "-dense_local", "-dense_bg"]
+CONFIG2_ARGV = ["--dataset", "celeba64", "-no_label", "--beta", "30", "--patch_size", "8",
+                "--global_latent_dims", "128", "--local_latent_dims", "128", "--batch_size", "64"]
+FIRST_STEPS, RESUMED_STEPS = 40, 60
+
+
+class Tee(io.TextIOBase):
+    """Writes to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        return self.buf.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def read_records(run_dir: str):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_cli_run(np, name, tmp, run, steps, prefixes):
+    """A run's records fall at ``steps`` under every prefix, all finite, with
+    no update skipped; its checkpoints (at most 3) and final weights exist."""
+    run_dir = os.path.join(tmp, "output", run)
+    records = read_records(run_dir)
+    for prefix in prefixes:
+        got = [r["step"] for r in records if any(k.startswith(prefix) for k in r)]
+        if got != steps:
+            fail(f"{name}: {run}'s {prefix} records at steps {got}, not {steps}")
+    for r in records:
+        values = [v for k, v in r.items() if k not in ("step", "time")]
+        if not values or not np.isfinite(values).all():
+            fail(f"{name}: a record that is empty or not finite at step {r['step']}: {r}")
+        if r.get("train/notfinite_updates", 0.0) != 0.0:
+            fail(f"{name}: {r['train/notfinite_updates']} updates skipped as non-finite by step "
+                 f"{r['step']}")
+    found = os.listdir(os.path.join(run_dir, "checkpoints"))
+    if not 1 <= len(found) <= 3 or any(not f.endswith(".pt") for f in found):
+        fail(f"{name}: {run}'s checkpoints are {found}")
+    if not os.path.isfile(os.path.join(tmp, "models", run + ".pt")):
+        fail(f"{name}: no final weights models/{run}.pt")
+    return records
+
+
+def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windowed):
+    """A CLI driven in-process in a temporary directory (the working directory,
+    data_dir and output_dir): FIRST_STEPS steps with evals and checkpoints
+    every 20, then ``--resume`` from that run's checkpoints to RESUMED_STEPS.
+    The launch counts are set to 0 before and read after both runs; on the
+    SPAIR path each train step launches the render pair and the crop's
+    backward once and builds no dense weights. Logs each checkpoint's write
+    time and size and the peak device memory; returns the launch counts and
+    the loop's train/imgs_per_sec at step FIRST_STEPS."""
+    import contextlib
+    import tempfile
+
+    from split_vae_torch.core import checkpoint as ckpt
+
+    spair = test_prefixes != ("test/",)
+    original, saves = ckpt.save_checkpoint, []
+
+    def timed_save(ckpt_dir, state, keep=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = original(ckpt_dir, state, keep)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        ckpt.save_checkpoint = timed_save
+        reset_launches(render, crop, windowed)
+        try:
+            with CountInterpMatrix() as dense, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+                common = argv + ["--data_dir", tmp, "--output_dir", os.path.join(tmp, "output")]
+                t0 = time.perf_counter()
+                main(common + ["--training_steps", str(FIRST_STEPS)])
+                t1 = time.perf_counter()
+                (first,) = os.listdir(os.path.join(tmp, "output"))
+                resume = os.path.join(tmp, "output", first, "checkpoints")
+                main(common + ["--training_steps", str(RESUMED_STEPS), "--resume", resume])
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        finally:
+            ckpt.save_checkpoint = original
+            os.chdir(cwd)
+        launches = read_launches(render, crop, windowed)
+        (second,) = set(os.listdir(os.path.join(tmp, "output"))) - {first}
+        prefixes = ("train/",) + test_prefixes
+        records = check_cli_run(np, name, tmp, first, [20, FIRST_STEPS], prefixes)
+        check_cli_run(np, name, tmp, second, [RESUMED_STEPS], prefixes)
+        if f"Resumed from {resume} at step {FIRST_STEPS}" not in out.buf.getvalue():
+            fail(f"{name}: the resumed run did not print 'Resumed from {resume} at step "
+                 f"{FIRST_STEPS}'")
+    steps = (FIRST_STEPS + 1) + (RESUMED_STEPS - FIRST_STEPS + 1)
+    if dense.calls:
+        fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls of "
+             f"interp_matrix with autograd on)")
+    if spair:
+        for kernel in ("render_fwd", "render_bwd", "crop_bwd"):
+            if launches[kernel] != steps:
+                fail(f"{name}: {kernel} launched {launches[kernel]} times in {steps} train steps")
+        if launches["crop_fwd"] < steps or launches["render_windowed_fwd"] \
+                or launches["render_windowed_bwd"]:
+            fail(f"{name}: launches {launches} in {steps} train steps")
+    elif any(launches.values()):
+        fail(f"{name}: a SPAIR kernel was launched on the LGVae path: {launches}")
+    (rate,) = [r["train/imgs_per_sec"] for r in records
+               if r["step"] == FIRST_STEPS and "train/imgs_per_sec" in r]
+    log(f"{name}: {steps} train steps through the CLI in {t1 - t0:.1f} s + {t2 - t1:.1f} s "
+        f"(set-up, data and evals included); launches {launches}; interp_matrix {dense.calls} "
+        f"calls with autograd on, {dense.no_grad_calls} under no_grad (the eval sweeps' unfused "
+        f"forwards); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{name}: checkpoints written: " + ", ".join(
+        f"{t * 1e3:.1f} ms for {size / 1e6:.1f} MB" for t, size in saves))
+    return launches, rate
 
 
 def main() -> None:
@@ -1163,12 +1320,12 @@ def main() -> None:
                                             patch_size=4), "LGGlimpseSPAIR")
     small_vae_step_check(torch, np, config2(batch_size=4, global_latent_dims=8,
                                             local_latent_dims=8), (32, 32))
-    launches, losses = {}, {}
+    launches, losses, rates = {}, {}, {}
     for name, cfg, windowed_render in (("P1", config5(), False), ("P2", config_bg_spair(), False),
                                        ("P3", config_glimpse_spair(), False),
                                        ("P4", config5(), True)):
-        launches[name], losses[name] = run_path(torch, np, name, cfg, render, crop, windowed,
-                                                windowed_render)
+        launches[name], losses[name], rates[name] = run_path(torch, np, name, cfg, render, crop,
+                                                             windowed, windowed_render)
         torch.cuda.empty_cache()
     # P4 is P1 with the other render pair: the same model, batches and draws,
     # the render seeds included. The first loss differs by the two kernels'
@@ -1180,8 +1337,27 @@ def main() -> None:
         fail(f"P4's first loss {losses['P4'][0]} is not P1's {losses['P1'][0]} (rtol 1e-5)")
     log(f"P4 vs P1: first loss within {first:.3g} relative, last within "
         f"{abs(losses['P4'][-1] - losses['P1'][-1]) / abs(losses['P1'][-1]):.3g}")
-    launches["P5"], losses["P5"] = run_vae_path(torch, np, "P5", config2(), CONFIG2_IMAGE_HW,
-                                                render, crop, windowed)
+    launches["P5"], losses["P5"], rates["P5"] = run_vae_path(
+        torch, np, "P5", config2(), CONFIG2_IMAGE_HW, render, crop, windowed)
+    torch.cuda.empty_cache()
+    # The CLIs: config #5 and config #2 trained, checkpointed and resumed.
+    from split_vae_torch.cli import spair_main, vae_main
+
+    cli_args = ["-synthetic_data", "--eval_interval", "20", "--checkpoint_interval", "20",
+                "--log_every", "10"]
+    launches["P6"], loop_rate = run_cli_path(
+        torch, np, "P6", spair_main.main, CONFIG5_ARGV + cli_args + ["--batch_size", "256"],
+        ("test0/", "test1/"), render, crop, windowed)
+    log(f"P6: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #5, B=256; steps "
+        f"21-40 and the step-20 checkpoint's write) beside P1's timed steps {rates['P1']:.1f} "
+        f"imgs/s in this run")
+    torch.cuda.empty_cache()
+    launches["P7"], loop_rate = run_cli_path(
+        torch, np, "P7", vae_main.main, CONFIG2_ARGV + cli_args, ("test/",), render, crop,
+        windowed)
+    log(f"P7: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #2, B=64; steps "
+        f"21-40 and the step-20 checkpoint's write) beside P5's timed steps {rates['P5']:.1f} "
+        f"imgs/s in this run")
     torch.cuda.empty_cache()
 
     # Phase 6: the record.

@@ -1,7 +1,8 @@
 """Typed configuration: the JAX package's VaeConfig and SpairConfig, field for field.
 
 Same fields and defaults as ``split_vae_tpu/core/config.py`` (BaseConfig,
-VaeConfig and SpairConfig); the argument parsers come with the CLI. ``config5``
+VaeConfig, SpairConfig and ClassifierConfig), with the reference CLIs' parsers
+``parse_vae_args`` and ``parse_spair_args``. ``config5``
 gives BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as
 ``bench.py::measure_spair`` sets it, ``config2`` BASELINE config #2 (LGVae on
 CelebA 64x64) as ``bench.py::measure`` sets it; ``config_bg_spair`` and
@@ -11,6 +12,7 @@ SpairConfig defaults.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -124,6 +126,76 @@ class SpairConfig(BaseConfig):
     def __post_init__(self):
         if self.eval_interval is None:
             self.eval_interval = 1_000
+
+
+@dataclass
+class ClassifierConfig(BaseConfig):
+    """vae/classifier.py:30-31 hard-coded config."""
+
+    learning_rate: float = 1e-4
+    latent_dims: int = 256
+    dataset: str = "svhn"
+    epochs: int = 20
+    batch_size: int = 32
+
+
+_FLAG_STYLE = {
+    # Flags spelled with a single dash + store_true in the reference.
+    "viz", "no_label", "allow_growth", "split_z_l", "dense_bg", "dense_local",
+    "concat_bg", "concat_z_what", "concat_backbone", "synthetic_data",
+    "debug_nans", "bg_model", "concat_z_bg", "fused_render", "no_fused_render",
+    "host_data",
+}
+# Counts parse through float, so 1e5 is accepted. The JAX parser converts
+# them so only after argparse, which has already refused "1e5" for a field
+# with an int default (training_steps, checkpoint_interval).
+_COUNT_FIELDS = ("training_steps", "eval_interval", "checkpoint_interval", "num_processes",
+                 "process_id")
+
+
+def _count(value: str) -> int:
+    return int(float(value))
+
+
+def _add_fields(parser: argparse.ArgumentParser, cls) -> None:
+    for f in dataclasses.fields(cls):
+        if f.name in ("image_size", "test_size"):
+            continue
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if f.type in ("bool", bool) or isinstance(default, bool):
+            prefix = "-" if f.name in _FLAG_STYLE else "--"
+            parser.add_argument(f"{prefix}{f.name}", action="store_true", default=default)
+        else:
+            if f.name in _COUNT_FIELDS:
+                typ = _count
+            elif default is None:
+                typ = str
+            else:
+                typ = {int: int, float: float}.get(type(default), str)
+            parser.add_argument(f"--{f.name}", type=typ, nargs="?", default=default)
+
+
+def _parse(cls, description: str, argv) -> dict:
+    parser = argparse.ArgumentParser(description=description)
+    _add_fields(parser, cls)
+    parser.add_argument("-allow_growth", action="store_true")  # accepted, ignored (TF-ism)
+    ns = vars(parser.parse_args(argv))
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in ns.items() if k in names}
+
+
+def parse_vae_args(argv=None) -> VaeConfig:
+    return VaeConfig(**_parse(VaeConfig, "SPLIT-VAE training (PyTorch)", argv))
+
+
+def parse_spair_args(argv=None) -> SpairConfig:
+    cfg = SpairConfig(**_parse(SpairConfig, "SPLIT-SPAIR training (PyTorch)", argv))
+    if cfg.no_fused_render:
+        cfg.fused_render = False
+    size = 48  # MultiCUB canvas (spair/data.py:239-247)
+    cfg.image_size = (size, size, cfg.channel)
+    cfg.test_size = (size, size, cfg.channel)
+    return cfg
 
 
 # BASELINE config #5: LG-SPAIR, Multi-Bird-Hard (bench.py:114-119).

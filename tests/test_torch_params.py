@@ -4,7 +4,7 @@ independence from JAX.
 Every leaf of a flax tree of each SPAIR model and of LGVae converts into the
 port's state_dict and back unchanged; a leaf with no counterpart on either side
 raises; and no module of the port, nor chip_smoke.py or crop_layer_turns.py,
-imports jax, flax, optax, the JAX package or its research tools.
+imports jax, flax, optax, msgpack, the JAX package or its research tools.
 """
 
 import ast
@@ -209,7 +209,8 @@ def _sources():
     yield os.path.join(REPO, "crop_layer_turns.py")
 
 
-@pytest.mark.parametrize("banned", ["jax", "flax", "optax", "split_vae_tpu", "tools"])
+@pytest.mark.parametrize("banned", ["jax", "flax", "optax", "msgpack", "split_vae_tpu",
+                                    "tools"])
 def test_port_imports_no_jax(banned):
     for path in _sources():
         with open(path) as f:
