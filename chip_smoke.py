@@ -5,8 +5,8 @@
 Drives the port's main paths at full width (random weights from a seed):
 SPAIR-family train steps (B=256, 48-px canvases, 4x4 cells) through the
 hand-written CUDA kernels (the fused paste+composite render, full-canvas and
-row-windowed, and the STN glimpse crop), and the LGVae train step, which has
-no hand-written kernel on it. The paths:
+row-windowed, and the STN glimpse crop), and the VAE-family train steps
+(LGVae, LGGMVae), which have no hand-written kernel on them. The paths:
 
   P1  LG-SPAIR at BASELINE config #5 (Multi-Bird-Hard: 32-px objects, dense
       background and local paths);
@@ -22,7 +22,17 @@ no hand-written kernel on it. The paths:
       made by the native generator, two test splits of 256): 40 steps with
       evals and checkpoints every 20, then --resume to step 60;
   P7  config #2 through split_vae_torch.cli.vae_main.main (synthetic CelebA
-      64x64), the same schedule.
+      64x64), the same schedule;
+  P8  LGGMVae (SPLIT-GMVAE) at BASELINE config #3 (SVHN 32x32, B=64, latents
+      128/128, y_size 30, tau 0.4, beta 40, alpha 40, patch 4), uint8 batches;
+  P9  config #3 through the CLIs: split_vae_torch.cli.classifier_main (one
+      epoch on synthetic data), then vae_main with config #3's flags on the
+      synthetic digits (8192 images, 1024 test) with the committed digits
+      classifier models/svhn_classifier_weights_synth_digits_8192.msgpack
+      copied into the run's models/: 40 steps, evals and checkpoints every
+      20, --resume to 60, the probe and cluster columns in every test record
+      and the classifier's test accuracy at least 0.9; then --model gmvae for
+      20 steps.
 
 Phases, each of which must pass:
 
@@ -59,7 +69,10 @@ Phases, each of which must pass:
      twice and that einsum) and a sweep of its cells a block;
   5. one small train step on the card against the same step on the CPU (plain
      kernels' versions) for LG-SPAIR (full-canvas and windowed render),
-     BG-SPAIR, LGGlimpseSPAIR and LGVae, then each main path: train steps with
+     BG-SPAIR, LGGlimpseSPAIR, LGVae, LGGMVae and GMVae (the GM steps with
+     their dropout masks live; their gradients held in float64 on both
+     devices, since the Gumbel softmax's backward cancels below the float32
+     tolerance), then each main path: train steps with
      the kernels' launch counts set to 0 before and read after (and no call
      of interp_matrix: no dense interpolation weights), the allocator's
      counts and the garbage collector's passes around them, a profile of
@@ -73,7 +86,7 @@ Phases, each of which must pass:
      crop's backward once a train step) and no interp_matrix call with
      autograd on; the checkpoints' write times and sizes, the peak device
      memory, and the loop's train/imgs_per_sec at step 40 beside P1's (P5's)
-     timed rate;
+     timed rate; P8 as P5, with every launch count 0; P9's checks above;
   6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -83,10 +96,12 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -660,6 +675,10 @@ class RecordingNoise:
         self.drawn.append(self.noise.permutation(n))
         return self.drawn[-1]
 
+    def keep(self, shape, rate):
+        self.drawn.append(self.noise.keep(shape, rate))
+        return self.drawn[-1]
+
     def seed(self):
         return self.noise.seed()
 
@@ -739,20 +758,27 @@ def small_step_check(torch, np, cfg, label, windowed=False):
                     [n for n, _ in cpu.named_parameters()], grads, results)
 
 
-def small_vae_step_check(torch, np, cfg, hw):
-    """One small LGVae train step on the card against the CPU, the same draws
-    replayed; see ``hold_small_step``."""
+def small_vae_step_check(torch, np, cfg, hw, label, grad_dtype=None):
+    """One small VAE-family train step on the card against the CPU, the same
+    draws replayed (the GM models' dropout masks among them); see
+    ``hold_small_step``. ``grad_dtype`` float64 takes the gradients in float64
+    on both devices; the step's metrics and parameters stay float32."""
     from split_vae_torch.core.noise import Noise
     from split_vae_torch.core.state import create_train_state
-    from split_vae_torch.models.vae import get_vae_model
-    from split_vae_torch.train.losses import lgvae_loss
-    from split_vae_torch.train.optim import vae_optimizer
-    from split_vae_torch.train.steps import augment, make_vae_train_step, normalize_images
+    from split_vae_torch.train.loop import build_vae_model
+    from split_vae_torch.train.steps import (
+        augment,
+        make_vae_train_step,
+        normalize_images,
+        vae_loss_fn,
+    )
 
+    grad_dtype = grad_dtype or torch.float32
+    loss_of = vae_loss_fn(cfg)
     batch = torch.from_numpy(np.random.RandomState(1).randint(0, 255, (cfg.batch_size, *hw, 3))
                              .astype(np.uint8))
-    cpu = get_vae_model(cfg, hw, device="cpu")
-    gpu = get_vae_model(cfg, hw, device="cuda")
+    cpu, tx = build_vae_model(cfg, hw, device="cpu")
+    gpu, _ = build_vae_model(cfg, hw, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     rec = RecordingNoise(Noise(torch.Generator().manual_seed(2)))
     with torch.no_grad():
@@ -761,17 +787,21 @@ def small_vae_step_check(torch, np, cfg, hw):
 
     grads = []
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
-        noise = Noise(torch.Generator(device=dev), replay)
-        images = augment(cfg, normalize_images(batch.to(dev), "tanh"), noise)
-        total, _ = lgvae_loss(model(images, True, noise), images, cfg.beta)
-        grads.append([t.cpu() for t in torch.autograd.grad(total, list(model.parameters()))])
+        images = augment(cfg, normalize_images(batch.to(dev), "tanh"),
+                         Noise(torch.Generator(device=dev), replay[:1]))
+        wide = copy.deepcopy(model).to(grad_dtype)
+        total, _ = loss_of(wide(images.to(grad_dtype), True,
+                                Noise(torch.Generator(device=dev), replay[1:], dtype=grad_dtype)),
+                           images.to(grad_dtype))
+        grads.append([t.cpu() for t in torch.autograd.grad(total, list(wide.parameters()))])
     results = []
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
-        state = create_train_state(model, vae_optimizer(cfg.learning_rate), seed=0)
+        state = create_train_state(model, tx, seed=0)
         state, metrics = make_vae_train_step(cfg)(state, batch.to(dev), replay)
         results.append(({k: float(v) for k, v in metrics.items()},
                         [p.detach().cpu() for p in model.parameters()]))
-    hold_small_step(torch, "LGVae", f"B={cfg.batch_size}, {hw[0]} px, patch {cfg.patch_size}",
+    hold_small_step(torch, label, f"B={cfg.batch_size}, {hw[0]} px, patch {cfg.patch_size}, "
+                    f"gradients in {str(grad_dtype).split('.')[-1]}",
                     [n for n, _ in cpu.named_parameters()], grads, results)
 
 
@@ -977,29 +1007,29 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
 
 
 def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
-    """The LGVae main path at full width: train steps on uint8 batches, a
-    profile, one eval step. No hand-written kernel lies on it; the launch
-    counts are read all the same and returned, with the losses and the
-    timed steps' imgs/s."""
+    """A VAE-family main path at full width (LGVae, LGGMVae): train steps on
+    uint8 batches, a profile, one eval step. No hand-written kernel lies on
+    it; the launch counts are read all the same, must be 0, and are returned,
+    with the losses and the timed steps' imgs/s."""
     from split_vae_torch.core.state import create_train_state
-    from split_vae_torch.models.vae import get_vae_model
-    from split_vae_torch.train.optim import vae_optimizer
+    from split_vae_torch.train.loop import build_vae_model
     from split_vae_torch.train.steps import make_vae_eval_step, make_vae_train_step
 
-    model = get_vae_model(cfg, hw, device="cuda")
-    state = create_train_state(model, vae_optimizer(cfg.learning_rate), seed=cfg.seed)
+    model, tx = build_vae_model(cfg, hw, device="cuda")
+    state = create_train_state(model, tx, seed=cfg.seed)
     train_step = make_vae_train_step(cfg)
     rng = np.random.RandomState(0)
     batches = [torch.from_numpy(rng.randint(0, 255, (cfg.batch_size, *hw, 3)).astype(np.uint8))
                .cuda() for _ in range(2)]
+    gm = f", y_size {cfg.y_size}, tau {cfg.tau}, alpha {cfg.alpha}" if cfg.model != "lgvae" else ""
     log(f"{name} ({cfg.model}, {hw[0]}x{hw[1]}, patch {cfg.patch_size}, latents "
-        f"{cfg.global_latent_dims}/{cfg.local_latent_dims}, beta {cfg.beta}): "
+        f"{cfg.global_latent_dims}/{cfg.local_latent_dims}, beta {cfg.beta}{gm}): "
         f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
     reset_launches(render, crop, windowed)
     state, losses, rate = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
     launches = read_launches(render, crop, windowed)
     if any(launches.values()):
-        fail(f"{name}: a SPAIR kernel was launched on the LGVae path: {launches}")
+        fail(f"{name}: a SPAIR kernel was launched on the {cfg.model} path: {launches}")
     log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     state = log_profile(torch, name, train_step, state, batches[0])
 
@@ -1011,8 +1041,7 @@ def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
     if (tuple(out.x_mean.shape) != (cfg.batch_size, *hw, 3)
             or tuple(images.shape) != (cfg.batch_size, *hw, 6)):
         fail(f"{name}: eval x_mean {tuple(out.x_mean.shape)}, images {tuple(images.shape)}")
-    log(f"{name} eval: total_loss {ev['total_loss']:.2f}, x_recon_loss {ev['x_recon_loss']:.2f}, "
-        f"x_hat_recon_loss {ev['x_hat_recon_loss']:.2f}, total_kl_loss {ev['total_kl_loss']:.4f}")
+    log(f"{name} eval: " + ", ".join(f"{k} {v:.4f}" for k, v in ev.items()))
     return launches, losses, rate
 
 
@@ -1070,15 +1099,17 @@ def check_cli_run(np, name, tmp, run, steps, prefixes):
     return records
 
 
-def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windowed):
+def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windowed,
+                 first=FIRST_STEPS, resumed=RESUMED_STEPS, prepare=None):
     """A CLI driven in-process in a temporary directory (the working directory,
-    data_dir and output_dir): FIRST_STEPS steps with evals and checkpoints
-    every 20, then ``--resume`` from that run's checkpoints to RESUMED_STEPS.
-    The launch counts are set to 0 before and read after both runs; on the
-    SPAIR path each train step launches the render pair and the crop's
+    data_dir and output_dir): ``first`` steps with evals and checkpoints
+    every 20, then, unless ``resumed`` is None, ``--resume`` from that run's
+    checkpoints to ``resumed``. ``prepare(tmp)`` runs first (it may put files
+    there). The launch counts are set to 0 before and read after both runs;
+    on the SPAIR path each train step launches the render pair and the crop's
     backward once and builds no dense weights. Logs each checkpoint's write
-    time and size and the peak device memory; returns the launch counts and
-    the loop's train/imgs_per_sec at step FIRST_STEPS."""
+    time and size and the peak device memory; returns the launch counts, the
+    loop's train/imgs_per_sec at step ``first`` and the runs' records."""
     import contextlib
     import tempfile
 
@@ -1101,30 +1132,35 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         ckpt.save_checkpoint = timed_save
-        reset_launches(render, crop, windowed)
         try:
+            if prepare is not None:
+                prepare(tmp)
+            reset_launches(render, crop, windowed)
             with CountInterpMatrix() as dense, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
                 common = argv + ["--data_dir", tmp, "--output_dir", os.path.join(tmp, "output")]
                 t0 = time.perf_counter()
-                main(common + ["--training_steps", str(FIRST_STEPS)])
-                t1 = time.perf_counter()
-                (first,) = os.listdir(os.path.join(tmp, "output"))
-                resume = os.path.join(tmp, "output", first, "checkpoints")
-                main(common + ["--training_steps", str(RESUMED_STEPS), "--resume", resume])
+                main(common + ["--training_steps", str(first)])
+                t1 = t2 = time.perf_counter()
+                (run,) = os.listdir(os.path.join(tmp, "output"))
+                resume = os.path.join(tmp, "output", run, "checkpoints")
+                if resumed is not None:
+                    main(common + ["--training_steps", str(resumed), "--resume", resume])
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
         finally:
             ckpt.save_checkpoint = original
             os.chdir(cwd)
         launches = read_launches(render, crop, windowed)
-        (second,) = set(os.listdir(os.path.join(tmp, "output"))) - {first}
         prefixes = ("train/",) + test_prefixes
-        records = check_cli_run(np, name, tmp, first, [20, FIRST_STEPS], prefixes)
-        check_cli_run(np, name, tmp, second, [RESUMED_STEPS], prefixes)
-        if f"Resumed from {resume} at step {FIRST_STEPS}" not in out.buf.getvalue():
-            fail(f"{name}: the resumed run did not print 'Resumed from {resume} at step "
-                 f"{FIRST_STEPS}'")
-    steps = (FIRST_STEPS + 1) + (RESUMED_STEPS - FIRST_STEPS + 1)
+        evals = list(range(20, first + 1, 20))
+        records = check_cli_run(np, name, tmp, run, evals, prefixes)
+        if resumed is not None:
+            (second,) = set(os.listdir(os.path.join(tmp, "output"))) - {run}
+            records += check_cli_run(np, name, tmp, second, [resumed], prefixes)
+            if f"Resumed from {resume} at step {first}" not in out.buf.getvalue():
+                fail(f"{name}: the resumed run did not print 'Resumed from {resume} at step "
+                     f"{first}'")
+    steps = (first + 1) + (0 if resumed is None else resumed - first + 1)
     if dense.calls:
         fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls of "
              f"interp_matrix with autograd on)")
@@ -1136,16 +1172,83 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
                 or launches["render_windowed_bwd"]:
             fail(f"{name}: launches {launches} in {steps} train steps")
     elif any(launches.values()):
-        fail(f"{name}: a SPAIR kernel was launched on the LGVae path: {launches}")
+        fail(f"{name}: a SPAIR kernel was launched on a VAE path: {launches}")
     (rate,) = [r["train/imgs_per_sec"] for r in records
-               if r["step"] == FIRST_STEPS and "train/imgs_per_sec" in r]
+               if r["step"] == first and "train/imgs_per_sec" in r]
     log(f"{name}: {steps} train steps through the CLI in {t1 - t0:.1f} s + {t2 - t1:.1f} s "
         f"(set-up, data and evals included); launches {launches}; interp_matrix {dense.calls} "
         f"calls with autograd on, {dense.no_grad_calls} under no_grad (the eval sweeps' unfused "
         f"forwards); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{name}: checkpoints written: " + ", ".join(
         f"{t * 1e3:.1f} ms for {size / 1e6:.1f} MB" for t, size in saves))
-    return launches, rate
+    return launches, rate, records
+
+
+# The probe's seven columns (train/probes.py); LGVae logs the first five.
+PROBE_KEYS = ("classifier_recon_acc", "classifier_random_z_l_acc", "classifier_random_z_g_acc",
+              "probe_random_z_l_acc_rangefix", "probe_random_z_g_acc_rangefix",
+              "probe_swapped_y_z_g_acc_rangefix", "probe_swapped_y_transfer_acc_rangefix")
+DIGITS_CLASSIFIER = "svhn_classifier_weights_synth_digits_8192.msgpack"
+CONFIG3_ARGV = ["--model", "lggmvae", "--beta", "40", "--alpha", "40", "--y_size", "30",
+                "--patch_size", "4", "--dataset", "svhn", "-synthetic_data", "--synthetic_style",
+                "digits", "--synthetic_size", "8192"]
+
+
+def run_classifier_cli(torch, np, render, crop, windowed):
+    """P9, first part: classifier_main --epochs 1 -synthetic_data in a
+    temporary directory; its losses finite, its .pt written, no kernel
+    launched. Returns the launch counts."""
+    import contextlib
+    import re
+    import tempfile
+
+    from split_vae_torch.cli import classifier_main
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        reset_launches(render, crop, windowed)
+        try:
+            with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+                t0 = time.perf_counter()
+                classifier_main.main(["--epochs", "1", "-synthetic_data", "--data_dir", tmp])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        finally:
+            os.chdir(cwd)
+        m = re.search(r"classifier epoch 1: train loss (\S+) acc (\S+) test acc (\S+)",
+                      out.buf.getvalue())
+        if not m or not np.isfinite([float(v) for v in m.groups()]).all():
+            fail(f"P9: classifier_main printed no finite epoch line: {out.buf.getvalue()[-500:]}")
+        weights = os.path.join(tmp, "models", "svhn_classifier_weights_synth_blobs_512.pt")
+        if not os.path.isfile(weights):
+            fail(f"P9: classifier_main wrote no {os.path.relpath(weights, tmp)}")
+        launches = read_launches(render, crop, windowed)
+    if any(launches.values()):
+        fail(f"P9: a SPAIR kernel was launched by classifier_main: {launches}")
+    log(f"P9 classifier_main: one epoch of 640 images (train and test) in {t1 - t0:.1f} s, "
+        f"set-up and data included; train loss {m.group(1)}, acc {m.group(2)}, test acc "
+        f"{m.group(3)}")
+    return launches
+
+
+def check_probe_records(name, records, probe_keys, min_classifier_acc=0.9):
+    """Every test/ record holds the cluster accuracy and exactly ``probe_keys``
+    of the probe columns; every meta/classifier_test_acc is at least
+    ``min_classifier_acc``."""
+    tests = [r for r in records if "test/total_loss" in r]
+    metas = [r["meta/classifier_test_acc"] for r in records if "meta/classifier_test_acc" in r]
+    if not tests or not metas:
+        fail(f"{name}: {len(tests)} test records, {len(metas)} meta records")
+    for r in tests:
+        got = {k for k in PROBE_KEYS if "test/" + k in r}
+        if "test/classifier_cluster_acc" not in r or got != set(probe_keys):
+            fail(f"{name}: the test record at step {r['step']} holds {sorted(r)}")
+    if min(metas) < min_classifier_acc:
+        fail(f"{name}: meta/classifier_test_acc {metas} below {min_classifier_acc}")
+    log(f"{name}: meta/classifier_test_acc {metas}; test/classifier_cluster_acc " + ", ".join(
+        f"{r['test/classifier_cluster_acc']:.4f} (step {r['step']})" for r in tests)
+        + "; " + ", ".join(f"{k} {tests[-1]['test/' + k]:.4f}" for k in probe_keys))
 
 
 def main() -> None:
@@ -1164,8 +1267,10 @@ def main() -> None:
         fail("torch.cuda.is_available() is false")
     from split_vae_torch.core.config import (
         CONFIG2_IMAGE_HW,
+        CONFIG3_IMAGE_HW,
         SpairConfig,
         config2,
+        config3,
         config5,
         config_bg_spair,
         config_glimpse_spair,
@@ -1319,7 +1424,11 @@ def main() -> None:
     small_step_check(torch, np, SpairConfig(**small, model="lg_glimpse_spair", object_size=12,
                                             patch_size=4), "LGGlimpseSPAIR")
     small_vae_step_check(torch, np, config2(batch_size=4, global_latent_dims=8,
-                                            local_latent_dims=8), (32, 32))
+                                            local_latent_dims=8), (32, 32), "LGVae")
+    for kind, label in (("lggmvae", "LGGMVae"), ("gmvae", "GMVae")):
+        small_vae_step_check(torch, np, config3(model=kind, batch_size=4, global_latent_dims=8,
+                                                local_latent_dims=8, y_size=5), (32, 32), label,
+                             grad_dtype=torch.float64)
     launches, losses, rates = {}, {}, {}
     for name, cfg, windowed_render in (("P1", config5(), False), ("P2", config_bg_spair(), False),
                                        ("P3", config_glimpse_spair(), False),
@@ -1345,19 +1454,46 @@ def main() -> None:
 
     cli_args = ["-synthetic_data", "--eval_interval", "20", "--checkpoint_interval", "20",
                 "--log_every", "10"]
-    launches["P6"], loop_rate = run_cli_path(
+    launches["P6"], loop_rate, _ = run_cli_path(
         torch, np, "P6", spair_main.main, CONFIG5_ARGV + cli_args + ["--batch_size", "256"],
         ("test0/", "test1/"), render, crop, windowed)
     log(f"P6: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #5, B=256; steps "
         f"21-40 and the step-20 checkpoint's write) beside P1's timed steps {rates['P1']:.1f} "
         f"imgs/s in this run")
     torch.cuda.empty_cache()
-    launches["P7"], loop_rate = run_cli_path(
+    launches["P7"], loop_rate, _ = run_cli_path(
         torch, np, "P7", vae_main.main, CONFIG2_ARGV + cli_args, ("test/",), render, crop,
         windowed)
     log(f"P7: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #2, B=64; steps "
         f"21-40 and the step-20 checkpoint's write) beside P5's timed steps {rates['P5']:.1f} "
         f"imgs/s in this run")
+    torch.cuda.empty_cache()
+    # Config #3: LGGMVae at full width, then through the CLIs with the probe.
+    launches["P8"], losses["P8"], rates["P8"] = run_vae_path(
+        torch, np, "P8", config3(), CONFIG3_IMAGE_HW, render, crop, windowed)
+    torch.cuda.empty_cache()
+    from split_vae_torch.cli import vae_main as vae_cli
+
+    launches["P9"] = run_classifier_cli(torch, np, render, crop, windowed)
+
+    def committed_classifier(tmp):
+        os.makedirs(os.path.join(tmp, "models"))
+        shutil.copy(os.path.join(HERE, "models", DIGITS_CLASSIFIER),
+                    os.path.join(tmp, "models", DIGITS_CLASSIFIER))
+
+    p9, loop_rate, records = run_cli_path(
+        torch, np, "P9", vae_cli.main, CONFIG3_ARGV + cli_args, ("test/",), render, crop,
+        windowed, prepare=committed_classifier)
+    check_probe_records("P9", records, PROBE_KEYS)
+    log(f"P9: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #3, B=64; steps "
+        f"21-40, the probe sweep at step 20 and the step-20 checkpoint's write) beside P8's "
+        f"timed steps {rates['P8']:.1f} imgs/s in this run")
+    p9_gm, loop_rate, records = run_cli_path(
+        torch, np, "P9 gmvae", vae_cli.main,
+        CONFIG3_ARGV + cli_args + ["--model", "gmvae"], ("test/",), render, crop, windowed,
+        first=20, resumed=None, prepare=committed_classifier)
+    check_probe_records("P9 gmvae", records, ())
+    launches["P9"] = {k: launches["P9"][k] + p9[k] + p9_gm[k] for k in KERNELS}
     torch.cuda.empty_cache()
 
     # Phase 6: the record.

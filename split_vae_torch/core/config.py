@@ -5,7 +5,8 @@ VaeConfig, SpairConfig and ClassifierConfig), with the reference CLIs' parsers
 ``parse_vae_args`` and ``parse_spair_args``. ``config5``
 gives BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as
 ``bench.py::measure_spair`` sets it, ``config2`` BASELINE config #2 (LGVae on
-CelebA 64x64) as ``bench.py::measure`` sets it; ``config_bg_spair`` and
+CelebA 64x64) as ``bench.py::measure`` sets it, ``config3`` BASELINE config #3
+(SPLIT-GMVAE on SVHN 32x32); ``config_bg_spair`` and
 ``config_glimpse_spair`` give two more full-width configurations at the
 SpairConfig defaults.
 """
@@ -219,6 +220,18 @@ CONFIG2_IMAGE_HW = (64, 64)
 
 def config2(**overrides) -> VaeConfig:
     return VaeConfig(**{**CONFIG2, **overrides})
+
+
+# BASELINE config #3: LGGMVae (SPLIT-GMVAE) on SVHN 32x32, labelled, with the
+# reference flags of BASELINE.md ("--model lggmvae --beta 40 --alpha 40
+# --y_size 30 --patch_size 4"); the batch is the CLI's default 64.
+CONFIG3 = dict(model="lggmvae", dataset="svhn", beta=40.0, alpha=40.0, y_size=30, tau=0.4,
+               patch_size=4, batch_size=64, global_latent_dims=128, local_latent_dims=128)
+CONFIG3_IMAGE_HW = (32, 32)
+
+
+def config3(**overrides) -> VaeConfig:
+    return VaeConfig(**{**CONFIG3, **overrides})
 
 
 def config_bg_spair(**overrides) -> SpairConfig:

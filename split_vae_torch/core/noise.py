@@ -2,7 +2,9 @@
 
 Every stochastic op of the port takes its noise as a tensor. ``Noise`` hands
 those tensors out in call order: drawn from a ``torch.Generator``, or
-replayed from a list (the tests replay what the JAX package drew).
+replayed from a list (the tests replay what the JAX package drew). The JAX
+package draws from named streams ('sample', 'dropout'); the port has one,
+and each model's docstring states where its dropout keep masks fall in it.
 """
 
 from __future__ import annotations
@@ -13,16 +15,21 @@ import torch
 
 
 class Noise:
+    """``dtype`` is that of the normals and uniforms, drawn or replayed (float32
+    unless a check runs a model in float64)."""
+
     def __init__(self, generator: torch.Generator,
-                 replay: Optional[Iterable[torch.Tensor]] = None):
+                 replay: Optional[Iterable[torch.Tensor]] = None,
+                 dtype: torch.dtype = torch.float32):
         self.generator = generator
         self.device = generator.device
+        self.dtype = dtype
         self._replay = None if replay is None else list(replay)
 
     def _next(self, shape) -> torch.Tensor:
         if not self._replay:
             raise ValueError(f"replayed noise ran out at a draw of shape {tuple(shape)}")
-        t = torch.as_tensor(self._replay.pop(0), dtype=torch.float32, device=self.device)
+        t = torch.as_tensor(self._replay.pop(0), dtype=self.dtype, device=self.device)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"replayed noise has shape {tuple(t.shape)}, "
                              f"the draw wants {tuple(shape)}")
@@ -31,12 +38,20 @@ class Noise:
     def normal(self, shape) -> torch.Tensor:
         if self._replay is not None:
             return self._next(shape)
-        return torch.randn(tuple(shape), generator=self.generator, device=self.device)
+        return torch.randn(tuple(shape), generator=self.generator, device=self.device,
+                           dtype=self.dtype)
 
     def uniform(self, shape) -> torch.Tensor:
         if self._replay is not None:
             return self._next(shape)
-        return torch.rand(tuple(shape), generator=self.generator, device=self.device)
+        return torch.rand(tuple(shape), generator=self.generator, device=self.device,
+                          dtype=self.dtype)
+
+    def keep(self, shape, rate: float) -> torch.Tensor:
+        """flax ``nn.Dropout``'s keep mask: True with probability 1 - rate, bool."""
+        if self._replay is not None:
+            return self._next(shape).to(torch.bool)
+        return torch.rand(tuple(shape), generator=self.generator, device=self.device) < 1.0 - rate
 
     def randint(self, high: int, shape) -> torch.Tensor:
         """Integers in [0, high), int64; replayed ones are taken as they are."""

@@ -125,6 +125,11 @@ def device_resident_batches(
             yield (batch, labels.index_select(0, sel)) if labels is not None else batch
 
 
+def to_device(x: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (a blocking copy; the eval sweeps' batches)."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
 def _put(batch, device: torch.device):
     if isinstance(batch, tuple):
         return tuple(_put(b, device) for b in batch)

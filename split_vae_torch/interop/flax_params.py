@@ -6,7 +6,13 @@ The JAX package keeps its parameters as a nested dict named by the flax tree
 names, so a leaf maps by path, with two layout rules:
 
 - a conv ``kernel`` is HWIO in flax and a ``weight`` OIHW in torch;
-- a Dense ``kernel`` is [in, out] in flax and a ``weight`` [out, in] in torch.
+- a Dense ``kernel`` is [in, out] in flax and a ``weight`` [out, in] in torch;
+- a BatchNorm ``scale`` is the ``weight`` (``bias`` stays ``bias``).
+
+A model with BatchNorm (the probe classifier) takes a flax *variables* tree,
+``{"params": ..., "batch_stats": ...}``, whose ``batch_stats`` leaves ``mean``
+and ``var`` are the buffers ``running_mean`` and ``running_var``;
+``state_dict_to_flax`` gives such a tree back for a state_dict with buffers.
 
 Both directions take and give plain numpy arrays on the flax side, so nothing
 here needs JAX: a tree read from a checkpoint, or handed over by a test, is
@@ -52,41 +58,64 @@ def _to_flax_layout(weight: np.ndarray, kind: str) -> np.ndarray:
     raise ValueError(f"a weight of rank {weight.ndim} has no flax layout")
 
 
-def flax_to_state_dict(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The flax tree ``params`` as a state_dict for ``model`` (on its devices)."""
+_PARAM_NAMES = {"kernel": "weight", "scale": "weight"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _is_variables(tree: Mapping) -> bool:
+    return "params" in tree and set(tree) <= {"params", "batch_stats"}
+
+
+def flax_to_state_dict(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The flax tree (params, or a {"params", "batch_stats"} variables tree)
+    as a state_dict for ``model`` (on its devices)."""
     target = model.state_dict()
+    if _is_variables(tree):
+        parts = [(tree["params"], _PARAM_NAMES), (tree.get("batch_stats", {}), _STAT_NAMES)]
+    else:
+        parts = [(tree, _PARAM_NAMES)]
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(params):
-        kind = path[-1]
-        name = ".".join(path[:-1] + ({"kernel": "weight"}.get(kind, kind),))
-        if name not in target:
-            raise KeyError(f"flax leaf {'/'.join(path)} has no counterpart {name!r} in the model")
-        value = _to_torch_layout(leaf, kind)
-        want = target[name]
-        if tuple(value.shape) != tuple(want.shape):
-            raise ValueError(f"{'/'.join(path)}: shape {value.shape} maps to {name} "
-                             f"of shape {tuple(want.shape)}")
-        out[name] = torch.tensor(value, device=want.device, dtype=want.dtype)
+    for part, names in parts:
+        for path, leaf in _leaves(part):
+            kind = path[-1]
+            name = ".".join(path[:-1] + (names.get(kind, kind),))
+            if name not in target:
+                raise KeyError(f"flax leaf {'/'.join(path)} has no counterpart {name!r} in the "
+                               f"model")
+            value = _to_torch_layout(leaf, kind)
+            want = target[name]
+            if tuple(value.shape) != tuple(want.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {value.shape} maps to {name} "
+                                 f"of shape {tuple(want.shape)}")
+            out[name] = torch.tensor(value, device=want.device, dtype=want.dtype)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"model entries with no flax leaf: {missing}")
     return out
 
 
-def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
-    """Copies the flax tree ``params`` into ``model``; returns the model."""
-    model.load_state_dict(flax_to_state_dict(params, model), strict=True)
+def load_flax_params(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Copies the flax tree (params or variables) into ``model``; returns the model."""
+    model.load_state_dict(flax_to_state_dict(tree, model), strict=True)
     return model
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """The inverse: a state_dict as a nested flax tree of numpy arrays."""
-    tree: Dict = {}
+    """The inverse: a state_dict as a nested flax tree of numpy arrays; a
+    {"params", "batch_stats"} variables tree when it holds running averages."""
+    params: Dict = {}
+    stats: Dict = {}
+    inverse = {v: k for k, v in _STAT_NAMES.items()}
     for name, tensor in state_dict.items():
         *scopes, kind = name.split(".")
-        kind = {"weight": "kernel"}.get(kind, kind)
-        node = tree
+        value = tensor.detach().cpu().numpy()
+        if kind in inverse:
+            node, kind = stats, inverse[kind]
+        else:
+            node = params
+            if kind == "weight":
+                kind = "scale" if value.ndim == 1 else "kernel"
         for scope in scopes:
             node = node.setdefault(scope, {})
-        node[kind] = _to_flax_layout(tensor.detach().cpu().numpy(), kind)
-    return tree
+        node[kind] = _to_flax_layout(value, kind)
+    return {"params": params, "batch_stats": stats} if stats else params

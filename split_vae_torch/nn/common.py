@@ -3,7 +3,9 @@
 - Tensors are NHWC at every public function; a convolution permutes to NCHW
   (a channels-last view, no copy) inside.
 - Weights are glorot-uniform and biases zero, as Keras and the JAX package
-  set them; ``init_params`` draws them from an explicit generator.
+  set them (a Dense built with ``bias_init=1.0`` starts at one, the JAX
+  package's ``ones_bias``); ``init_params`` draws them from an explicit
+  generator.
 - ``Conv`` pads as TF/flax ``SAME`` does: total padding
   max((ceil(n/s) - 1)*s + k - n, 0), the odd pixel on the high side. Torch's
   symmetric ``padding=`` differs whenever that total is odd.
@@ -29,10 +31,12 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 class Dense(nn.Module):
     """flax Dense: y = x @ W^T + b, W stored [out, in] (flax keeps [in, out])."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 bias_init: float = 0.0):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.bias = nn.Parameter(torch.full((out_features,), bias_init, device=device))
+        self.bias_init = bias_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -64,13 +68,55 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` on NHWC (or [B, F]) tensors, statistics over every
+    axis but the last, at momentum 0.99 and eps 1e-3.
+
+    ``weight`` and ``bias`` are flax's ``scale`` and ``bias``; the buffers
+    ``running_mean`` and ``running_var`` its ``batch_stats`` mean and var. In
+    training the batch variance is the biased one, E[x^2] - E[x]^2 clipped at
+    0 (flax's fast variance), and the averages move as ra = momentum * ra +
+    (1 - momentum) * batch. ``nn.BatchNorm2d`` updates ``running_var`` with
+    the unbiased variance, so it does not stand in.
+    """
+
+    momentum, eps = 0.99, 1e-3  # the probe classifier's (vae/model.py:325-352)
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        if training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp_min(torch.square(x).mean(dim=dims) - torch.square(mean), 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout`` with its keep mask given: where(keep, x / (1 - rate), 0)."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """Glorot-uniform weights and zero biases for every Dense and Conv in module."""
+    """Glorot-uniform weights for every Dense and Conv in module; Conv biases
+    zero, Dense biases their ``bias_init``."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (Dense, Conv)):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
-                m.bias.zero_()
+                m.bias.fill_(getattr(m, "bias_init", 0.0))
 
 
 def flatten(x: torch.Tensor) -> torch.Tensor:

@@ -11,18 +11,21 @@ working directory. ``--resume`` restores a checkpoint; the data order then
 starts again from the seed, as in the JAX loop. ``--profile_dir`` traces
 step 100 (in both loops; the JAX package traces only the VAE loop).
 
+A labelled ``svhn*`` VAE run loads (or trains) the frozen probe classifier,
+logs its test accuracy under ``meta/``, and adds the probe accuracies
+(LGVae, LGGMVae) and the cluster accuracy (LGGMVae, GMVae) to every test
+sweep, as the JAX loop does.
+
 The step's metrics stay on the device until an interval's ``result()``.
-Not ported yet, and refused with the ROADMAP item that brings them: the GM
-families (A4), the SVHN classifier probe of a labelled ``svhn*`` run (A3;
-``-no_label`` runs), bfloat16 (A7), more than one shard or process (A8). The
-PNG artifacts (A5), which the JAX loop draws inside ``try`` and which no
-metric reads, are left out.
+Not ported yet, and refused with the ROADMAP item that brings them: bfloat16
+(A7), more than one shard or process (A8). The PNG artifacts (A5), which the
+JAX loop draws inside ``try`` and which no metric reads, are left out.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ import torch
 from split_vae_torch.core import checkpoint as ckpt
 from split_vae_torch.core.logging import RunLogger, StepTimer, make_run_dir, maybe_profile
 from split_vae_torch.core.metrics import MeanMetrics, linear_assignment
+from split_vae_torch.core.noise import Noise
 from split_vae_torch.core.runtime import setup_runtime
 from split_vae_torch.core.state import TrainState, create_train_state
 from split_vae_torch.data import get_vae_dataset
@@ -39,11 +43,18 @@ from split_vae_torch.data.loader import (
     device_prefetch,
     device_resident_batches,
     iterate_batches,
+    to_device,
 )
 from split_vae_torch.data.multicub import get_multicub
 from split_vae_torch.models.spair import get_spair_model
-from split_vae_torch.models.vae import get_vae_model
-from split_vae_torch.train.optim import GradientTransformation, spair_optimizer, vae_optimizer
+from split_vae_torch.models.vae import GMVae, LGGMVae, get_vae_model
+from split_vae_torch.train import probes as probes_mod
+from split_vae_torch.train.optim import (
+    GradientTransformation,
+    gm_optimizer,
+    spair_optimizer,
+    vae_optimizer,
+)
 from split_vae_torch.train.steps import (
     make_spair_eval_step,
     make_spair_train_step,
@@ -54,12 +65,15 @@ from split_vae_torch.train.steps import (
 
 def build_vae_model(config, image_hw, device="cuda") -> Tuple[torch.nn.Module,
                                                               GradientTransformation]:
-    if config.model in ("lggmvae", "gmvae"):
-        raise NotImplementedError(f"--model {config.model}: the GM families come with "
-                                  f"ROADMAP A4")
-    if config.model != "lgvae":
+    """The model and its optimizer: Adam for LGVae, Adam with the staircase
+    decay for the GM families, each skipping non-finite updates."""
+    if config.model == "lgvae":
+        tx = vae_optimizer(config.learning_rate)
+    elif config.model in ("lggmvae", "gmvae"):
+        tx = gm_optimizer(config.learning_rate)
+    else:
         raise NotImplementedError(config.model)
-    return get_vae_model(config, image_hw, device=device), vae_optimizer(config.learning_rate)
+    return get_vae_model(config, image_hw, device=device), tx
 
 
 def _train_iterator(train_ds: ArrayDataset, config, device: torch.device):
@@ -74,10 +88,6 @@ def _train_iterator(train_ds: ArrayDataset, config, device: torch.device):
     return device_prefetch(
         iterate_batches(train_ds, config.batch_size, repeat=True, seed=config.seed),
         device=device)
-
-
-def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
 def _start(config) -> torch.device:
@@ -103,9 +113,10 @@ def _resume(config, state: TrainState) -> None:
 
 
 def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir: str,
-           max_steps: Optional[int]) -> TrainState:
+           max_steps: Optional[int], meta: Optional[Dict[str, float]] = None) -> TrainState:
     """The JAX loop's schedule around ``train_step``; ``evaluate(step, logger)``
-    runs the test sweeps. ``--profile_dir`` traces step 100."""
+    runs the test sweeps; ``meta`` is logged first, under ``meta/``.
+    ``--profile_dir`` traces step 100."""
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     train_metrics = MeanMetrics()
     timer = StepTimer()
@@ -113,6 +124,8 @@ def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir:
     logger = RunLogger(run_dir)
     try:
         step = state.step
+        if meta:
+            logger.log(step, meta, prefix="meta/")
         while step <= total_steps:
             batch = next(train_iter)
             with maybe_profile(config.profile_dir if step == 100 else None, step):
@@ -146,10 +159,7 @@ def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir:
 
 
 def train_vae(config, max_steps: Optional[int] = None):
-    """Train LGVae (vae/trainer.py:72-421)."""
-    if config.label and config.dataset.lower().startswith("svhn"):
-        raise NotImplementedError("the SVHN classifier probe of a labelled run comes with "
-                                  "ROADMAP A3; pass -no_label")
+    """Train LGVae / LGGMVae / GMVae (vae/trainer.py:72-421)."""
     device = _start(config)
     run_dir = make_run_dir(config.output_dir)
     print(f"Run dir: {run_dir}")
@@ -166,6 +176,23 @@ def train_vae(config, max_steps: Optional[int] = None):
     labeled = train_ds.labels is not None
     eval_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
 
+    # The classifier probe of a labelled SVHN run (vae/trainer.py:81-97).
+    gm = isinstance(model, (LGGMVae, GMVae))
+    probe_step = None
+    meta = None
+    if config.label and config.dataset.lower().startswith("svhn"):
+        classifier = probes_mod.load_or_train_classifier(config, device=device)
+        test_acc = probes_mod.evaluate_classifier(classifier, test_ds)
+        print(f"Classifier test acc: {test_acc:.4f}")
+        meta = {"classifier_test_acc": float(test_acc)}
+        if test_acc < 0.5:
+            print("WARNING: probe classifier is near chance on real test "
+                  "images; classifier_* probe metrics will be unreliable "
+                  "(wrong dataset flavor or undertrained probe).")
+        if not isinstance(model, GMVae):
+            probe_step = probes_mod.make_vae_probe_step(model, classifier,
+                                                        gm=isinstance(model, LGGMVae))
+
     def train_step(state, batch):
         return vae_step(state, batch[0] if labeled else batch)
 
@@ -175,12 +202,14 @@ def train_vae(config, max_steps: Optional[int] = None):
         all_labels, all_pred = [], []
         for tb in iterate_batches(test_ds, config.batch_size, shuffle=False):
             t_imgs, t_labels = tb if labeled else (tb, None)
-            out, m_test, _ = eval_step(eval_gen, _to_device(t_imgs, device))
+            out, m_test, _ = eval_step(eval_gen, to_device(t_imgs, device))
             test_metrics.update(m_test)
-            y_logits = getattr(out, "y_logits", None)
-            if t_labels is not None and y_logits is not None:
+            if t_labels is not None and probe_step is not None:
+                test_metrics.update(probe_step(out, to_device(t_labels, device),
+                                               Noise(eval_gen)))
+            if t_labels is not None and gm:
                 all_labels.append(np.asarray(t_labels))
-                all_pred.append(y_logits.cpu().numpy())
+                all_pred.append(out.y_logits.cpu().numpy())
         results = test_metrics.result()
         if all_labels:
             labels_cat = np.concatenate(all_labels)
@@ -190,7 +219,7 @@ def train_vae(config, max_steps: Optional[int] = None):
         logger.log(step, results, prefix="test/")
 
     state = _train(config, state, train_step, _train_iterator(train_ds, config, device),
-                   evaluate, run_dir, max_steps)
+                   evaluate, run_dir, max_steps, meta=meta)
     return state, run_dir
 
 
@@ -221,8 +250,8 @@ def train_spair(config, max_steps: Optional[int] = None):
             for tb in iterate_batches(test_ds_i, config.batch_size, shuffle=False):
                 t_imgs, t_labels = tb if labeled else (tb, None)
                 _, m_test, _ = eval_step(
-                    eval_gen, _to_device(t_imgs, device),
-                    _to_device(t_labels, device) if t_labels is not None else None)
+                    eval_gen, to_device(t_imgs, device),
+                    to_device(t_labels, device) if t_labels is not None else None)
                 test_metrics.update(m_test)
             logger.log(step, test_metrics.result(), prefix=f"test{test_num}/")
 

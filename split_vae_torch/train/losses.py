@@ -1,6 +1,6 @@
-"""Losses (split_vae_tpu/train/losses.py): ``lgvae_loss`` and ``spair_loss``.
+"""Losses (split_vae_tpu/train/losses.py): the three VAE families and ``spair_loss``.
 
-vae/trainer.py:120-144 and spair/trainer.py:136-234 with its annealing
+vae/trainer.py:120-196 and spair/trainer.py:136-234 with its annealing
 schedules, one branch a model; metric keys are the reference's.
 """
 
@@ -11,13 +11,15 @@ from typing import Dict, Tuple
 import torch
 
 from split_vae_torch.models.spair import SpairOutput
-from split_vae_torch.models.vae import LGVaeOutput
+from split_vae_torch.models.vae import GMVaeOutput, LGGMVaeOutput, LGVaeOutput
 from split_vae_torch.ops.count_prior import z_pres_count_kl
 from split_vae_torch.ops.distributions import (
     bernoulli_xent,
+    categorical_kl_uniform,
     discretized_logistic_nll,
     gaussian_kl,
     gaussian_kl_safe,
+    gaussian_kl_two,
     gaussian_kl_two_safe,
     mean_sum,
 )
@@ -44,6 +46,48 @@ def lgvae_loss(out: LGVaeOutput, images: torch.Tensor,
         "x_hat_recon_loss": x_hat_recon_loss,
         "x_hat_kl_loss": gaussian_kl(out.z_mean_x_hat, out.z_sig_x_hat),
         "total_kl_loss": total_kl,
+        "total_loss": total,
+    }
+
+
+def lggmvae_loss(out: LGGMVaeOutput, images: torch.Tensor, beta: float, alpha: float,
+                 y_size: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x and x_hat recons + beta * (KL(z_g || the y prior) + KL(z_l || N(0, 1)))
+    + alpha * KL(y || uniform) (vae/trainer.py:146-173)."""
+    x, x_hat = images[..., :3], images[..., 3:]
+    x_recon_loss = _recon_nll(x, out.x_mean, out.x_log_scale)
+    x_hat_recon_loss = _recon_nll(x_hat, out.x_hat_mean, out.x_hat_log_scale)
+    x_kl = gaussian_kl_two(out.z_mean_x, out.z_sig_x, out.z_prior_mean, out.z_prior_sig)
+    # The N(0, 1) prior as device tensors: a Python 0.0 and 1.0 would each be
+    # copied to the device on every step.
+    x_hat_kl = gaussian_kl_two(out.z_mean_x_hat, out.z_sig_x_hat,
+                               torch.zeros_like(out.z_mean_x_hat),
+                               torch.ones_like(out.z_sig_x_hat))
+    y_kl = categorical_kl_uniform(out.y_logits, y_size)
+    total = x_recon_loss + x_hat_recon_loss + beta * (x_kl + x_hat_kl) + alpha * y_kl
+    return total, {
+        "x_recon_loss": x_recon_loss,
+        "x_kl_loss": x_kl,
+        "x_hat_recon_loss": x_hat_recon_loss,
+        "x_hat_kl_loss": x_hat_kl,
+        "y_kl_loss": y_kl,
+        "total_loss": total,
+    }
+
+
+def gmvae_loss(out: GMVaeOutput, images: torch.Tensor, beta: float, alpha: float,
+               y_size: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x recon + beta * KL(z || the y prior) + alpha * KL(y || uniform)
+    (vae/trainer.py:175-195)."""
+    x = images[..., :3]
+    x_recon_loss = _recon_nll(x, out.x_mean, out.x_log_scale)
+    x_kl = gaussian_kl_two(out.z_mean_x, out.z_sig_x, out.z_prior_mean, out.z_prior_sig)
+    y_kl = categorical_kl_uniform(out.y_logits, y_size)
+    total = x_recon_loss + beta * x_kl + alpha * y_kl
+    return total, {
+        "x_recon_loss": x_recon_loss,
+        "x_kl_loss": x_kl,
+        "y_kl_loss": y_kl,
         "total_loss": total,
     }
 

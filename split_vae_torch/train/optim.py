@@ -1,4 +1,5 @@
-"""Optimizer (split_vae_tpu/train/optim.py): per-tensor clipnorm, Adam, skip of non-finite updates.
+"""Optimizer (split_vae_tpu/train/optim.py): per-tensor clipnorm, Adam and
+AMSGrad, skip of non-finite updates.
 
 Written as optax-style transformations, init(params) -> state and
 update(grads, state) -> (updates, state), over lists of tensors, so the math
@@ -6,20 +7,31 @@ and the state follow optax step for step:
 
 - ``clip_by_per_tensor_norm``: Keras ``clipnorm`` clips each gradient tensor
   by its own L2 norm, g * max_norm / max(||g||, max_norm).
-- ``adam``: optax.adam with the Keras epsilon 1e-7.
+- ``adam``: optax.adam with the Keras epsilon 1e-7; the learning rate is a
+  float or a schedule of the count, read at the count before the update as
+  optax's ``scale_by_schedule`` reads it. ``amsgrad=True`` is
+  optax.amsgrad: the running maximum of the *bias-corrected* second moment,
+  nu_max = max(nu_max, nu / (1 - b2^t)), and update mu_hat / (sqrt(nu_max) +
+  eps). ``torch.optim.Adam(amsgrad=True)`` keeps the maximum of the raw
+  moment and corrects it afterwards, which gives other numbers.
 - ``nan_robust``: skips an update whose gradients or inner updates hold a
-  NaN or Inf, leaves the inner state as it was, and counts the skips.
+  NaN or Inf, leaves the inner state as it was (the count too, so a schedule
+  does not advance), and counts the skips.
 
 The SPAIR chain is nan_robust(chain(clip 1.0, adam)) (train/loop.py:295-296),
-the LGVae chain nan_robust(adam) with no clip (train/loop.py:55,65).
+the LGVae chain nan_robust(adam) with no clip (train/loop.py:55,65), the GM
+chain nan_robust(adam(gm_lr_schedule)) (train/loop.py:56-62), the probe
+classifier's adam(1e-4, amsgrad=True) (train/probes.py:171).
 The skip is a select on the device, so a step needs no sync.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Union
 
 import torch
+
+from split_vae_torch.train.schedules import gm_lr_schedule
 
 Tensors = List[torch.Tensor]
 
@@ -46,22 +58,37 @@ class AdamState(NamedTuple):
     nu: Tensors
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-7) -> GradientTransformation:
+class AmsgradState(NamedTuple):
+    count: torch.Tensor  # int32
+    mu: Tensors
+    nu: Tensors
+    nu_max: Tensors
+
+
+def adam(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
+         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-7,
+         amsgrad: bool = False) -> GradientTransformation:
     def init(params):
-        return AdamState(torch.zeros((), dtype=torch.int32, device=params[0].device),
-                         [torch.zeros_like(p) for p in params],
-                         [torch.zeros_like(p) for p in params])
+        count = torch.zeros((), dtype=torch.int32, device=params[0].device)
+        mu = [torch.zeros_like(p) for p in params]
+        nu = [torch.zeros_like(p) for p in params]
+        if amsgrad:
+            return AmsgradState(count, mu, nu, [torch.zeros_like(p) for p in params])
+        return AdamState(count, mu, nu)
 
     def update(grads, state):
+        lr = learning_rate(state.count) if callable(learning_rate) else learning_rate
         mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
         nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
         count = state.count + 1
         t = count.to(torch.float32)
         bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=t.device), t)
         bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t)
-        updates = [-learning_rate * ((m / bc1) / (torch.sqrt(v / bc2) + eps))
-                   for m, v in zip(mu, nu)]
+        if amsgrad:
+            nu_max = [torch.maximum(vm, v / bc2) for vm, v in zip(state.nu_max, nu)]
+            updates = [-lr * ((m / bc1) / (torch.sqrt(vm) + eps)) for m, vm in zip(mu, nu_max)]
+            return updates, AmsgradState(count, mu, nu, nu_max)
+        updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for m, v in zip(mu, nu)]
         return updates, AdamState(count, mu, nu)
 
     return GradientTransformation(init, update)
@@ -119,6 +146,17 @@ def spair_optimizer(learning_rate: float) -> GradientTransformation:
 def vae_optimizer(learning_rate: float) -> GradientTransformation:
     """Keras Adam(lr) as the JAX package trains LGVae (train/loop.py:55,65)."""
     return nan_robust(adam(learning_rate))
+
+
+def gm_optimizer(learning_rate: float) -> GradientTransformation:
+    """Keras Adam with the staircase decay, as the JAX package trains LGGMVae
+    and GMVae (train/loop.py:56-62)."""
+    return nan_robust(adam(gm_lr_schedule(learning_rate)))
+
+
+def classifier_optimizer() -> GradientTransformation:
+    """Keras Adam(amsgrad=True) at 1e-4 of the probe classifier (train/probes.py:171)."""
+    return adam(1e-4, amsgrad=True)
 
 
 def notfinite_count(opt_state):

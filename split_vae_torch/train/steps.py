@@ -1,13 +1,15 @@
-"""The train and eval steps (split_vae_tpu/train/steps.py), SPAIR family and LGVae.
+"""The train and eval steps (split_vae_tpu/train/steps.py), SPAIR and VAE families.
 
 A SPAIR train step: raw batch -> [0, 1] floats -> for lg_spair the patch
 scramble on the device -> forward (the crop and the fused render through their
 kernels on a GPU) -> loss -> backward -> clip, Adam, skip of non-finite
-updates. An LGVae train step: uint8 batch -> [-1, 1] floats -> the
-augmentation on the device -> forward -> discretized-logistic loss -> backward
--> Adam, skip of non-finite updates. fp32 only: the steps turn TF32 off for
-matmuls and cuDNN convolutions, which would otherwise break parity with the
-f32 reference.
+updates. A VAE-family train step (LGVae, LGGMVae, GMVae): uint8 batch ->
+[-1, 1] floats -> the augmentation on the device -> forward -> the model's
+loss -> backward -> Adam, skip of non-finite updates. GMVae too gets the
+augmented 6-channel input and reads its first 3 channels, so the
+augmentation's draws are spent as in the JAX step. fp32 only: the steps turn
+TF32 off for matmuls and cuDNN convolutions, which would otherwise break
+parity with the f32 reference.
 """
 
 from __future__ import annotations
@@ -68,24 +70,37 @@ def _apply(state: TrainState, total: torch.Tensor, metrics) -> Dict[str, torch.T
     return metrics
 
 
+def vae_loss_fn(config) -> Callable:
+    """(out, images) -> (total, metrics) of config.model (train/steps.py:83-96)."""
+    if config.model == "lgvae":
+        return lambda out, images: losses.lgvae_loss(out, images, config.beta)
+    if config.model == "lggmvae":
+        return lambda out, images: losses.lggmvae_loss(out, images, config.beta, config.alpha,
+                                                       config.y_size)
+    if config.model == "gmvae":
+        return lambda out, images: losses.gmvae_loss(out, images, config.beta, config.alpha,
+                                                     config.y_size)
+    raise NotImplementedError(config.model)
+
+
 def make_vae_train_step(config) -> Callable:
-    """Returns train_step(state, batch, replay=None) -> (state, metrics) for LGVae.
+    """Returns train_step(state, batch, replay=None) -> (state, metrics) for
+    LGVae, LGGMVae or GMVae (config.model).
 
     Draw order as in the JAX step: the augmentation's draws (k_aug), then the
-    model's samples (k_sample). ``replay`` (tests only) lists them in that
-    order; otherwise they come from ``state.generator``.
+    model's (k_sample, then the GM models' dropout keep masks; see their
+    docstrings). ``replay`` (tests only) lists them in that order; otherwise
+    they come from ``state.generator``.
     """
     _require_fp32(config)
-    if config.model != "lgvae":
-        raise NotImplementedError(f"Model type not ported yet: {config.model}")
+    loss_of = vae_loss_fn(config)
     use_fp32()
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         noise = Noise(state.generator, replay)
         images = augment(config, normalize_images(batch, "tanh"), noise)
-        out = state.model(images, True, noise)
-        total, metrics = losses.lgvae_loss(out, images, config.beta)
+        total, metrics = loss_of(state.model(images, True, noise), images)
         return state, _apply(state, total, metrics)
 
     return train_step
@@ -93,8 +108,9 @@ def make_vae_train_step(config) -> Callable:
 
 def make_vae_eval_step(config, model) -> Callable:
     """Returns eval_step(generator, batch, replay=None) -> (out, metrics, images),
-    under ``torch.no_grad``: training=False, the sampling noise stays on, as in
-    the reference's test steps (vae/trainer.py:199-292)."""
+    under ``torch.no_grad``: training=False (no dropout), the sampling noise
+    stays on, as in the reference's test steps (vae/trainer.py:199-292)."""
+    loss_of = vae_loss_fn(config)
     use_fp32()
 
     def eval_step(generator: torch.Generator, batch: torch.Tensor,
@@ -103,7 +119,7 @@ def make_vae_eval_step(config, model) -> Callable:
             noise = Noise(generator, replay)
             images = augment(config, normalize_images(batch, "tanh"), noise)
             out = model(images, False, noise)
-            _, metrics = losses.lgvae_loss(out, images, config.beta)
+            _, metrics = loss_of(out, images)
         return out, metrics, images
 
     return eval_step

@@ -133,9 +133,6 @@ def test_train_vae_schedule_checkpoints_and_resume(capsys, host_data):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--model", "lggmvae", "-no_label"], "A4"),
-    (["--model", "gmvae", "-no_label"], "A4"),
-    (["--dataset", "svhn"], "A3"),
     (["--compute_dtype", "bfloat16", "-no_label"], "A7"),
     (["--num_data_shards", "2", "-no_label"], "A8"),
     (["--num_processes", "2", "-no_label"], "A8"),
