@@ -32,7 +32,17 @@ row-windowed, and the STN glimpse crop), and the VAE-family train steps
       copied into the run's models/: 40 steps, evals and checkpoints every
       20, --resume to 60, the probe and cluster columns in every test record
       and the classifier's test accuracy at least 0.9; then --model gmvae for
-      20 steps.
+      20 steps; both with -viz;
+  P10 P1 with --compute_dtype bfloat16 (every Dense and Conv in bfloat16, the
+      parameters float32): the same seed and batches, the render and crop
+      pairs on float32 inputs once a step;
+  P11 P5 in bfloat16;
+  P12 config #2 in bfloat16 through vae_main: 20 steps, one eval.
+
+P6, P7, P9 and P12 also check the PNG artifacts of every eval: the names the
+JAX loop writes for the model and flags, each file decoded by
+split_vae_torch/viz/png.py at its canvas's shape, no "[viz] ... skipped"
+line; the count, the bytes and the viz ms an eval are logged.
 
 Phases, each of which must pass:
 
@@ -76,7 +86,8 @@ Phases, each of which must pass:
      the kernels' launch counts set to 0 before and read after (and no call
      of interp_matrix: no dense interpolation weights), the allocator's
      counts and the garbage collector's passes around them, a profile of
-     three more steps (device time by kernel family, the device's idle share),
+     three more steps (device time by kernel family, the device's idle share,
+     the host's costliest operators),
      and one eval step; P4's losses beside P1's; then P6 and P7, each in a
      temporary directory (working directory, data_dir, output_dir): the
      records at steps 20, 40 and, after the resume, 60 under train/ and each
@@ -87,6 +98,9 @@ Phases, each of which must pass:
      autograd on; the checkpoints' write times and sizes, the peak device
      memory, and the loop's train/imgs_per_sec at step 40 beside P1's (P5's)
      timed rate; P8 as P5, with every launch count 0; P9's checks above;
+     P10 and P11 as P1 and P5, their first losses within rtol 0.02 of P1's
+     and P5's, the parameters and the optimizer's state float32 after the
+     steps (held on every path); P12 as P7 without the resume;
   6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -127,6 +141,7 @@ FWD_ATOL = 3e-5
 WINDOWED_VS_FULL_ATOL = 3e-6
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-4
 TRAIN_STEPS, WARMUP_STEPS = 6, 2
+HOST_OPS = 6  # the host's costliest operators logged with each profile
 SLEEP_CYCLES = 5_000_000  # about 3 ms at the H100's clocks: longer than any run's host time
 
 
@@ -631,7 +646,8 @@ def profile_steps(torch, train_step, state, batch, steps: int = 3):
     """Device time by kernel family over a few train steps (torch.profiler).
 
     Returns the state, the window's host seconds, the union of the kernels'
-    device intervals in seconds, and {family: (device seconds, launches)}.
+    device intervals in seconds, {family: (device seconds, launches)} and
+    the host's costliest operators [(name, calls, self CPU seconds)].
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -654,7 +670,9 @@ def profile_steps(torch, train_step, state, batch, steps: int = 3):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t, n = families.get(kernel_family(e.name), (0.0, 0))
             families[kernel_family(e.name)] = (t + e.time_range.elapsed_us() * 1e-6, n + 1)
-    return state, wall, busy * 1e-6, families
+    ops = sorted(((a.key, a.count, a.self_cpu_time_total * 1e-6) for a in prof.key_averages()
+                  if a.key.startswith("aten::")), key=lambda o: -o[2])[:HOST_OPS]
+    return state, wall, busy * 1e-6, families, ops
 
 
 class RecordingNoise:
@@ -663,13 +681,19 @@ class RecordingNoise:
     def __init__(self, noise):
         self.noise, self.drawn = noise, []
 
-    def normal(self, shape):
-        self.drawn.append(self.noise.normal(shape))
+    def normal(self, shape, dtype=None):
+        self.drawn.append(self.noise.normal(shape, dtype))
         return self.drawn[-1]
 
-    def uniform(self, shape):
-        self.drawn.append(self.noise.uniform(shape))
+    def uniform(self, shape, dtype=None):
+        self.drawn.append(self.noise.uniform(shape, dtype))
         return self.drawn[-1]
+
+    def normal_like(self, t):
+        return self.normal(t.shape, t.dtype)
+
+    def uniform_like(self, t):
+        return self.uniform(t.shape, t.dtype)
 
     def permutation(self, n):
         self.drawn.append(self.noise.permutation(n))
@@ -936,15 +960,37 @@ class CountInterpMatrix:
         return False
 
 
+def check_float32_state(name, state):
+    """The parameters and the optimizer's floating state are float32 after the
+    steps, whatever the compute dtype."""
+    import torch
+
+    def tensors(tree):
+        if isinstance(tree, torch.Tensor):
+            yield tree
+        elif isinstance(tree, (tuple, list)):
+            for t in tree:
+                yield from tensors(t)
+
+    held = list(state.model.parameters()) + [
+        t for t in tensors(state.opt_state) if t.is_floating_point()]
+    other = {str(t.dtype) for t in held if t.dtype != torch.float32}
+    if other:
+        fail(f"{name}: parameters or optimizer state in {sorted(other)} after the steps")
+
+
 def log_profile(torch, name, train_step, state, batch):
     """Where the step's time goes (after the launch counts were read)."""
     n_prof = 3
-    state, wall, busy, families = profile_steps(torch, train_step, state, batch, n_prof)
+    state, wall, busy, families, ops = profile_steps(torch, train_step, state, batch, n_prof)
     if busy > 0:
         log(f"{name} profile: {n_prof} steps under torch.profiler, {wall / n_prof * 1e3:.3f} ms "
             f"a step on the host clock; device busy {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
         for fam, (t, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
             log(f"  {fam}: {t / n_prof * 1e3:.3f} ms a step, {n // n_prof} launches a step")
+        log(f"  host, the costliest operators by self CPU time (the profiler's own cost "
+            f"included): " + ", ".join(f"{k} {t / n_prof * 1e3:.2f} ms in {c // n_prof} calls"
+                                       for k, c, t in ops) + " a step")
     else:
         log(f"{name} profile: the profiler recorded no device time")
     return state
@@ -968,13 +1014,14 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
     batches = [torch.from_numpy(rng.uniform(0, 1, (cfg.batch_size,) + tuple(cfg.image_size))
                                 .astype(np.float32)).cuda() for _ in range(2)]
     log(f"{name} ({cfg.model}, {cfg.object_size}-px objects, "
-        f"{'row-windowed' if windowed_render else 'full-canvas'} render): B={cfg.batch_size}, "
-        f"{sum(p.numel() for p in model.parameters())} params")
+        f"{'row-windowed' if windowed_render else 'full-canvas'} render, {cfg.compute_dtype}): "
+        f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
     reset_launches(render, crop, windowed)
     with CountInterpMatrix() as dense:
         state, losses, rate = timed_steps(torch, np, name, train_step, state, batches,
                                           cfg.batch_size)
     launches = read_launches(render, crop, windowed)
+    check_float32_state(name, state)
     if dense.calls:
         fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls "
              f"of interp_matrix)")
@@ -1023,11 +1070,13 @@ def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
                .cuda() for _ in range(2)]
     gm = f", y_size {cfg.y_size}, tau {cfg.tau}, alpha {cfg.alpha}" if cfg.model != "lgvae" else ""
     log(f"{name} ({cfg.model}, {hw[0]}x{hw[1]}, patch {cfg.patch_size}, latents "
-        f"{cfg.global_latent_dims}/{cfg.local_latent_dims}, beta {cfg.beta}{gm}): "
+        f"{cfg.global_latent_dims}/{cfg.local_latent_dims}, beta {cfg.beta}{gm}, "
+        f"{cfg.compute_dtype}): "
         f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
     reset_launches(render, crop, windowed)
     state, losses, rate = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
     launches = read_launches(render, crop, windowed)
+    check_float32_state(name, state)
     if any(launches.values()):
         fail(f"{name}: a SPAIR kernel was launched on the {cfg.model} path: {launches}")
     log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1099,8 +1148,105 @@ def check_cli_run(np, name, tmp, run, steps, prefixes):
     return records
 
 
+# The PNGs of one eval step: {name: (height, width, channels)} of the files the
+# JAX loop writes for the model and flags (split_vae_tpu/train/loop.py:248-277,
+# :343-389), and the cluster galleries, whose clusters depend on the data:
+# (name prefix, the set of clusters allowed, rows, the image width, the most
+# images a gallery shows).
+SPAIR_N = 10  # the SPAIR writers' images (n=10)
+
+
+def spair_pngs(hw, grid, object_size, tests, batch, model):
+    from split_vae_torch.viz.png import PANEL_GAP  # white columns between a figure's panels
+
+    h, w = hw
+    k, n = grid * grid, min(SPAIR_N, batch)
+    decomposition = (h * (k + 2), 3 * w * n + 2 * PANEL_GAP, 3)  # three panels
+
+    def at(step):
+        out = {f"train_recon_it_{step}.png": decomposition}
+        for t in range(tests):
+            s = f"_it_{step}_{t}"
+            out[f"x_reconstrcution_test{s}.png"] = decomposition
+            out[f"x_reconstrcution_bbox{s}.png"] = (3 * h, n * w, 3)
+            out[f"glimpses{s}.png"] = (object_size * k, 3 * object_size * n + 2 * PANEL_GAP, 3)
+            if model == "lg_spair":
+                out[f"x_hat_reconstrcution_test{s}.png"] = (2 * h, n * w, 3)
+            elif model == "lg_glimpse_spair":
+                out[f"glimpses_local{s}.png"] = (object_size * k,
+                                                 2 * object_size * n + PANEL_GAP, 3)
+        return out, None
+    return at
+
+
+def vae_pngs(hw, model, svhn, viz, last_batch, y_size):
+    h, w = hw
+    grid = (10 * h, 10 * w, 3)
+
+    def at(step):
+        if model == "gmvae":
+            return {}, None
+        out = {f"generate_it_{step}.png": grid, f"vary_lower_it_{step}.png": grid,
+               f"x_hat_vary_lower_it_{step}.png": grid, f"vary_upper_it_{step}.png": grid,
+               f"x_reconstruction_test_it_{step}.png": (2 * h, 10 * w, 3),
+               f"x_hat_reconstruction_test_it_{step}.png": (2 * h, 10 * w, 3)}
+        if svhn:
+            out[f"style_transfer_it_{step}.png"] = (3 * h, 10 * w, 3)
+        elif last_batch >= 20:
+            out[f"style_transfer_celeba_it_{step}.png"] = (4 * h, 10 * w, 3)
+        if not (viz and model == "lggmvae"):
+            return out, None
+        for stem in ("generate_cluster_fix_zl", "generate_cluster", "generate_multi_cluster"):
+            out[f"{stem}_it_{step}.png"] = grid
+        return out, (f"unseen_cluster__it_{step}_", range(y_size), h, w, 7)
+    return at
+
+
+def check_pngs(np, name, run_dir, steps, expected):
+    """Each eval step's PNG names are the JAX loop's (``expected(step)``), and
+    each file decodes with viz/png.py at its canvas's shape. Returns the
+    files' count and bytes."""
+    import re
+
+    from split_vae_torch.viz.png import read_png
+
+    files = [f for f in os.listdir(run_dir) if f.endswith(".png")]
+    by_step = {}
+    for f in files:
+        m = re.search(r"_it_(\d+)(?:_\d+)?\.png$", f)
+        if not m:
+            fail(f"{name}: {f} is not a file of an eval step")
+        by_step.setdefault(int(m.group(1)), []).append(f)
+    if sorted(k for k, v in by_step.items() if v) != sorted(
+            s for s in steps if expected(s)[0]):
+        fail(f"{name}: PNGs at steps {sorted(by_step)}, evals at {steps}")
+    nbytes = 0
+    for step in steps:
+        fixed, gallery = expected(step)
+        got = set(by_step.get(step, []))
+        galleries = {f for f in got if gallery and f.startswith(gallery[0])}
+        if got - galleries != set(fixed) or (gallery and not galleries):
+            fail(f"{name}: PNGs at step {step} are {sorted(got)}, the JAX loop writes "
+                 f"{sorted(fixed)}" + (f" and {gallery[0]}<cluster>.png" if gallery else ""))
+        for f in sorted(got):
+            image, _ = read_png(os.path.join(run_dir, f))
+            shape = image.shape if image.ndim == 3 else image.shape + (1,)
+            if f in galleries:
+                prefix, clusters, rows, width, most = gallery
+                c = int(f[len(prefix):-4])
+                ok = (c in clusters and shape[0] == rows and shape[2] == 3
+                      and shape[1] % width == 0 and 1 <= shape[1] // width <= most)
+            else:
+                ok = shape == fixed[f]
+            if not ok:
+                fail(f"{name}: {f} decodes to {shape}"
+                     + ("" if f in galleries else f", the canvas is {fixed[f]}"))
+            nbytes += os.path.getsize(os.path.join(run_dir, f))
+    return len(files), nbytes
+
+
 def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windowed,
-                 first=FIRST_STEPS, resumed=RESUMED_STEPS, prepare=None):
+                 first=FIRST_STEPS, resumed=RESUMED_STEPS, prepare=None, pngs=None):
     """A CLI driven in-process in a temporary directory (the working directory,
     data_dir and output_dir): ``first`` steps with evals and checkpoints
     every 20, then, unless ``resumed`` is None, ``--resume`` from that run's
@@ -1109,11 +1255,18 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
     on the SPAIR path each train step launches the render pair and the crop's
     backward once and builds no dense weights. Logs each checkpoint's write
     time and size and the peak device memory; returns the launch counts, the
-    loop's train/imgs_per_sec at step ``first`` and the runs' records."""
+    loop's train/imgs_per_sec at step ``first`` and the runs' records.
+
+    ``pngs`` (``spair_pngs``, ``vae_pngs``) gives each eval step's PNGs: every
+    run's are checked by ``check_pngs``, and a ``[viz] ... skipped`` line in
+    the output (the loop's guard around its figures) fails the path. The
+    loop's viz functions are timed (the device synchronized around them) for
+    the viz ms an eval."""
     import contextlib
     import tempfile
 
     from split_vae_torch.core import checkpoint as ckpt
+    from split_vae_torch.train import loop
 
     spair = test_prefixes != ("test/",)
     original, saves = ckpt.save_checkpoint, []
@@ -1125,6 +1278,20 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
         saves.append((time.perf_counter() - t0, os.path.getsize(path)))
         return path
 
+    viz_ms, viz_fns = [], ("_vae_visualize", "_spair_train_plot", "_spair_visualize")
+    originals = {k: getattr(loop, k) for k in viz_fns}
+
+    def timed_viz(fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                viz_ms.append((time.perf_counter() - t0) * 1e3)
+        return timed
+
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1132,6 +1299,8 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         ckpt.save_checkpoint = timed_save
+        for k in viz_fns:
+            setattr(loop, k, timed_viz(originals[k]))
         try:
             if prepare is not None:
                 prepare(tmp)
@@ -1149,17 +1318,35 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
                 t2 = time.perf_counter()
         finally:
             ckpt.save_checkpoint = original
+            for k in viz_fns:
+                setattr(loop, k, originals[k])
             os.chdir(cwd)
         launches = read_launches(render, crop, windowed)
         prefixes = ("train/",) + test_prefixes
         evals = list(range(20, first + 1, 20))
         records = check_cli_run(np, name, tmp, run, evals, prefixes)
+        runs = [(run, evals)]
         if resumed is not None:
             (second,) = set(os.listdir(os.path.join(tmp, "output"))) - {run}
             records += check_cli_run(np, name, tmp, second, [resumed], prefixes)
+            runs.append((second, [resumed]))
             if f"Resumed from {resume} at step {first}" not in out.buf.getvalue():
                 fail(f"{name}: the resumed run did not print 'Resumed from {resume} at step "
                      f"{first}'")
+        skipped = [line for line in out.buf.getvalue().splitlines()
+                   if line.startswith("[viz]") and "skipped" in line]
+        if skipped:
+            fail(f"{name}: a figure failed: {skipped}")
+        if pngs is not None:
+            n_png = n_bytes = 0
+            for run_name, steps_at in runs:
+                c, b = check_pngs(np, name, os.path.join(tmp, "output", run_name), steps_at,
+                                  pngs)
+                n_png, n_bytes = n_png + c, n_bytes + b
+            n_evals = sum(len(steps_at) for _, steps_at in runs)
+            log(f"{name}: {n_png} PNGs in {n_evals} evals, {n_bytes / 1e6:.3f} MB, each the JAX "
+                f"loop's name and its canvas's shape; viz {sum(viz_ms) / n_evals:.1f} ms an eval "
+                f"(" + ", ".join(f"{t:.1f}" for t in viz_ms) + " ms a call)")
     steps = (first + 1) + (0 if resumed is None else resumed - first + 1)
     if dense.calls:
         fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls of "
@@ -1449,6 +1636,23 @@ def main() -> None:
     launches["P5"], losses["P5"], rates["P5"] = run_vae_path(
         torch, np, "P5", config2(), CONFIG2_IMAGE_HW, render, crop, windowed)
     torch.cuda.empty_cache()
+    # bfloat16: config #5 and config #2 again, every Dense and Conv in bfloat16,
+    # the same seeds and batches; the first loss within rtol 0.02 of the
+    # float32 path's (the JAX package's own contract, tests/test_bf16_mode.py).
+    launches["P10"], losses["P10"], rates["P10"] = run_path(
+        torch, np, "P10", config5(compute_dtype="bfloat16"), render, crop, windowed)
+    torch.cuda.empty_cache()
+    launches["P11"], losses["P11"], rates["P11"] = run_vae_path(
+        torch, np, "P11", config2(compute_dtype="bfloat16"), CONFIG2_IMAGE_HW, render, crop,
+        windowed)
+    torch.cuda.empty_cache()
+    for bf16, f32 in (("P10", "P1"), ("P11", "P5")):
+        first = abs(losses[bf16][0] - losses[f32][0]) / abs(losses[f32][0])
+        if not first <= 0.02:
+            fail(f"{bf16}'s first loss {losses[bf16][0]} is not within rtol 0.02 of {f32}'s "
+                 f"{losses[f32][0]}")
+        log(f"{bf16} (bfloat16) vs {f32} (float32): first loss within {first:.3g} relative; "
+            f"{rates[bf16]:.1f} against {rates[f32]:.1f} imgs/s")
     # The CLIs: config #5 and config #2 trained, checkpointed and resumed.
     from split_vae_torch.cli import spair_main, vae_main
 
@@ -1456,17 +1660,26 @@ def main() -> None:
                 "--log_every", "10"]
     launches["P6"], loop_rate, _ = run_cli_path(
         torch, np, "P6", spair_main.main, CONFIG5_ARGV + cli_args + ["--batch_size", "256"],
-        ("test0/", "test1/"), render, crop, windowed)
+        ("test0/", "test1/"), render, crop, windowed,
+        pngs=spair_pngs((48, 48), 4, 32, 2, 256, "lg_spair"))
     log(f"P6: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #5, B=256; steps "
         f"21-40 and the step-20 checkpoint's write) beside P1's timed steps {rates['P1']:.1f} "
         f"imgs/s in this run")
     torch.cuda.empty_cache()
+    p7_pngs = vae_pngs(CONFIG2_IMAGE_HW, "lgvae", svhn=False, viz=False, last_batch=64, y_size=0)
     launches["P7"], loop_rate, _ = run_cli_path(
         torch, np, "P7", vae_main.main, CONFIG2_ARGV + cli_args, ("test/",), render, crop,
-        windowed)
+        windowed, pngs=p7_pngs)
     log(f"P7: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #2, B=64; steps "
         f"21-40 and the step-20 checkpoint's write) beside P5's timed steps {rates['P5']:.1f} "
         f"imgs/s in this run")
+    torch.cuda.empty_cache()
+    launches["P12"], loop_rate, _ = run_cli_path(
+        torch, np, "P12", vae_main.main,
+        CONFIG2_ARGV + cli_args + ["--compute_dtype", "bfloat16"], ("test/",), render, crop,
+        windowed, first=20, resumed=None, pngs=p7_pngs)
+    log(f"P12: config #2 in bfloat16 through vae_main, the loop's train/imgs_per_sec at step 20 "
+        f"{loop_rate:.1f} (steps 1-20, the first step's set-up included)")
     torch.cuda.empty_cache()
     # Config #3: LGGMVae at full width, then through the CLIs with the probe.
     launches["P8"], losses["P8"], rates["P8"] = run_vae_path(
@@ -1482,16 +1695,19 @@ def main() -> None:
                     os.path.join(tmp, "models", DIGITS_CLASSIFIER))
 
     p9, loop_rate, records = run_cli_path(
-        torch, np, "P9", vae_cli.main, CONFIG3_ARGV + cli_args, ("test/",), render, crop,
-        windowed, prepare=committed_classifier)
+        torch, np, "P9", vae_cli.main, CONFIG3_ARGV + cli_args + ["-viz"], ("test/",), render,
+        crop, windowed, prepare=committed_classifier,
+        pngs=vae_pngs(CONFIG3_IMAGE_HW, "lggmvae", svhn=True, viz=True, last_batch=64,
+                      y_size=30))
     check_probe_records("P9", records, PROBE_KEYS)
     log(f"P9: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #3, B=64; steps "
         f"21-40, the probe sweep at step 20 and the step-20 checkpoint's write) beside P8's "
         f"timed steps {rates['P8']:.1f} imgs/s in this run")
     p9_gm, loop_rate, records = run_cli_path(
         torch, np, "P9 gmvae", vae_cli.main,
-        CONFIG3_ARGV + cli_args + ["--model", "gmvae"], ("test/",), render, crop, windowed,
-        first=20, resumed=None, prepare=committed_classifier)
+        CONFIG3_ARGV + cli_args + ["--model", "gmvae", "-viz"], ("test/",), render, crop,
+        windowed, first=20, resumed=None, prepare=committed_classifier,
+        pngs=vae_pngs(CONFIG3_IMAGE_HW, "gmvae", svhn=True, viz=True, last_batch=64, y_size=30))
     check_probe_records("P9 gmvae", records, ())
     launches["P9"] = {k: launches["P9"][k] + p9[k] + p9_gm[k] for k in KERNELS}
     torch.cuda.empty_cache()

@@ -29,7 +29,7 @@ class BaseConfig:
     resume: Optional[str] = None
     num_data_shards: int = 0
     num_model_shards: int = 1
-    compute_dtype: str = "float32"  # only float32 is ported so far
+    compute_dtype: str = "float32"  # or "bfloat16"
     profile_dir: Optional[str] = None
     debug_nans: bool = False
     log_every: int = 100

@@ -16,7 +16,9 @@ import torch
 
 class Noise:
     """``dtype`` is that of the normals and uniforms, drawn or replayed (float32
-    unless a check runs a model in float64)."""
+    unless a check runs a model in float64); a draw may ask for its own, as the
+    JAX package draws a sample in the dtype of the tensor it perturbs (bfloat16
+    under ``--compute_dtype bfloat16``)."""
 
     def __init__(self, generator: torch.Generator,
                  replay: Optional[Iterable[torch.Tensor]] = None,
@@ -26,26 +28,34 @@ class Noise:
         self.dtype = dtype
         self._replay = None if replay is None else list(replay)
 
-    def _next(self, shape) -> torch.Tensor:
+    def _next(self, shape, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if not self._replay:
             raise ValueError(f"replayed noise ran out at a draw of shape {tuple(shape)}")
-        t = torch.as_tensor(self._replay.pop(0), dtype=self.dtype, device=self.device)
+        t = torch.as_tensor(self._replay.pop(0), dtype=dtype or self.dtype, device=self.device)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"replayed noise has shape {tuple(t.shape)}, "
                              f"the draw wants {tuple(shape)}")
         return t
 
-    def normal(self, shape) -> torch.Tensor:
+    def normal(self, shape, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if self._replay is not None:
-            return self._next(shape)
+            return self._next(shape, dtype)
         return torch.randn(tuple(shape), generator=self.generator, device=self.device,
-                           dtype=self.dtype)
+                           dtype=dtype or self.dtype)
 
-    def uniform(self, shape) -> torch.Tensor:
+    def uniform(self, shape, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if self._replay is not None:
-            return self._next(shape)
+            return self._next(shape, dtype)
         return torch.rand(tuple(shape), generator=self.generator, device=self.device,
-                          dtype=self.dtype)
+                          dtype=dtype or self.dtype)
+
+    def normal_like(self, t: torch.Tensor) -> torch.Tensor:
+        """Standard normals of ``t``'s shape and dtype."""
+        return self.normal(t.shape, t.dtype)
+
+    def uniform_like(self, t: torch.Tensor) -> torch.Tensor:
+        """Uniforms in [0, 1) of ``t``'s shape and dtype."""
+        return self.uniform(t.shape, t.dtype)
 
     def keep(self, shape, rate: float) -> torch.Tensor:
         """flax ``nn.Dropout``'s keep mask: True with probability 1 - rate, bool."""

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from split_vae_torch.core.noise import Noise
-from split_vae_torch.nn.common import init_params
+from split_vae_torch.nn.common import activation_dtype, init_params
 from split_vae_torch.nn.spair_nets import (
     BackgroundModel,
     GlimpseDecoder,
@@ -66,14 +66,14 @@ class SpairOutput(NamedTuple):
 
 
 def _image_vae(dense: bool, image_hw, num_channel: int, latent_size: int, decoder_in: int,
-               device):
+               device, dtype=None):
     """An image encoder and decoder pair: the MLP one (``dense``) or the conv one."""
     h, w = image_hw
     if dense:
-        return (ImageEncoderDense(h * w * num_channel, latent_size, device),
-                ImageDecoderDense(decoder_in, image_hw, num_channel, device))
-    return (ImageEncoder(image_hw, num_channel, latent_size, device),
-            ImageDecoder(decoder_in, image_hw, num_channel, device))
+        return (ImageEncoderDense(h * w * num_channel, latent_size, device, dtype=dtype),
+                ImageDecoderDense(decoder_in, image_hw, num_channel, device, dtype=dtype))
+    return (ImageEncoder(image_hw, num_channel, latent_size, device, dtype=dtype),
+            ImageDecoder(decoder_in, image_hw, num_channel, device, dtype=dtype))
 
 
 class _SpairBase(nn.Module):
@@ -81,12 +81,14 @@ class _SpairBase(nn.Module):
 
     ``render_noise_scale`` is the fused render's noise (the JAX
     ``fused_decode_render(noise_scale=0.01)``); 0 turns it off, as the JAX
-    package's interpret mode does.
+    package's interpret mode does. ``compute_dtype`` is every Dense and
+    Conv's (None: float32); the train steps check it against the config's.
     """
 
     def __init__(self, image_hw: Tuple[int, int], num_channel: int, fused_render: bool,
-                 render_noise_scale: float):
+                 render_noise_scale: float, dtype: Optional[torch.dtype]):
         super().__init__()
+        self.compute_dtype = dtype
         self.image_hw = tuple(image_hw)
         self.num_channel = num_channel
         self.fused_render = fused_render
@@ -132,15 +134,17 @@ class SPAIR(_SpairBase):
 
     def __init__(self, image_hw: Tuple[int, int], object_size: int, latent_size: int,
                  tau: float, num_channel: int = 3, bg: bool = False, bg_latent_size: int = 4,
-                 fused_render: bool = False, render_noise_scale: float = 0.01, device=None):
-        super().__init__(image_hw, num_channel, fused_render, render_noise_scale)
+                 fused_render: bool = False, render_noise_scale: float = 0.01, device=None,
+                 dtype=None):
+        super().__init__(image_hw, num_channel, fused_render, render_noise_scale, dtype)
         self.bg = bg
         self.encoder = SpairEncoder(image_hw, num_channel, object_size, latent_size, tau,
-                                    device=device)
+                                    device=device, dtype=dtype)
         self.decoder = SpairDecoder(image_hw, object_size, num_channel, latent_size,
-                                    latent_size, device)
+                                    latent_size, device, dtype=dtype)
         if bg:
-            self.bg_model = BackgroundModel(image_hw, bg_latent_size, num_channel, device)
+            self.bg_model = BackgroundModel(image_hw, bg_latent_size, num_channel, device,
+                                            dtype=dtype)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise,
                 fused: Optional[bool] = None, windowed: bool = False) -> SpairOutput:
@@ -160,22 +164,25 @@ class LGSPAIR(_SpairBase):
                  local_latent_size: int = 64, dense_bg: bool = False,
                  dense_local: bool = False, concat_z_what: bool = False,
                  concat_backbone: bool = False, concat_z_bg: bool = False,
-                 fused_render: bool = False, render_noise_scale: float = 0.01, device=None):
-        super().__init__(image_hw, num_channel, fused_render, render_noise_scale)
+                 fused_render: bool = False, render_noise_scale: float = 0.01, device=None,
+                 dtype=None):
+        super().__init__(image_hw, num_channel, fused_render, render_noise_scale, dtype)
         self.concat_z_what = concat_z_what
         self.concat_backbone = concat_backbone
         self.concat_z_bg = concat_z_bg
         self.encoder = SpairEncoder(image_hw, num_channel, object_size, latent_size, tau,
                                     concat=concat_backbone,
-                                    local_latent_size=local_latent_size, device=device)
+                                    local_latent_size=local_latent_size, device=device,
+                                    dtype=dtype)
         what = latent_size + (local_latent_size if concat_z_what else 0)
         self.decoder = SpairDecoder(image_hw, object_size, num_channel, what, latent_size,
-                                    device)
+                                    device, dtype=dtype)
         bg_in = bg_latent_size + (local_latent_size if concat_z_bg else 0)
         self.bg_encoder, self.bg_decoder = _image_vae(dense_bg, image_hw, num_channel,
-                                                      bg_latent_size, bg_in, device)
+                                                      bg_latent_size, bg_in, device, dtype)
         self.x_hat_encoder, self.x_hat_decoder = _image_vae(
-            dense_local, image_hw, num_channel, local_latent_size, local_latent_size, device)
+            dense_local, image_hw, num_channel, local_latent_size, local_latent_size, device,
+            dtype)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise,
                 fused: Optional[bool] = None, windowed: bool = False) -> SpairOutput:
@@ -209,17 +216,20 @@ class LGGlimpseSPAIR(_SpairBase):
     def __init__(self, image_hw: Tuple[int, int], object_size: int, latent_size: int,
                  tau: float, num_channel: int = 3, bg_latent_size: int = 4,
                  local_latent_size: int = 64, patch_size: int = 4, dense_bg: bool = False,
-                 fused_render: bool = False, render_noise_scale: float = 0.01, device=None):
-        super().__init__(image_hw, num_channel, fused_render, render_noise_scale)
+                 fused_render: bool = False, render_noise_scale: float = 0.01, device=None,
+                 dtype=None):
+        super().__init__(image_hw, num_channel, fused_render, render_noise_scale, dtype)
         self.object_size = object_size
         self.encoder = SpairEncoder(image_hw, num_channel, object_size, latent_size, tau,
                                     glimpse_local=True, patch_size=patch_size,
-                                    local_latent_size=local_latent_size, device=device)
+                                    local_latent_size=local_latent_size, device=device,
+                                    dtype=dtype)
         self.decoder = SpairDecoder(image_hw, object_size, num_channel, latent_size,
-                                    latent_size, device)
+                                    latent_size, device, dtype=dtype)
         self.bg_encoder, self.bg_decoder = _image_vae(dense_bg, image_hw, num_channel,
-                                                      bg_latent_size, bg_latent_size, device)
-        self.x_hat_decoder = GlimpseDecoder(object_size, num_channel, local_latent_size, device)
+                                                      bg_latent_size, bg_latent_size, device, dtype)
+        self.x_hat_decoder = GlimpseDecoder(object_size, num_channel, local_latent_size, device,
+                                            dtype=dtype)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise,
                 fused: Optional[bool] = None, windowed: bool = False) -> SpairOutput:
@@ -251,7 +261,8 @@ def get_spair_model(config, device="cuda",
     """Model factory on config.model (spair/spair.py:8-17).
 
     Weights are glorot-uniform from ``generator`` (a generator seeded with
-    config.seed on the model's device if None).
+    config.seed on the model's device if None); every Dense and Conv computes
+    in config.compute_dtype.
     """
     device = require_device(device)
     common = dict(
@@ -263,6 +274,7 @@ def get_spair_model(config, device="cuda",
         bg_latent_size=config.bg_latent_size,
         fused_render=config.fused_render,
         device=device,
+        dtype=activation_dtype(config.compute_dtype),
     )
     if config.model == "lg_spair":
         model = LGSPAIR(

@@ -15,7 +15,7 @@ from torch import nn
 
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.models.spair import require_device
-from split_vae_torch.nn.common import init_params
+from split_vae_torch.nn.common import activation_dtype, init_params
 from split_vae_torch.nn.decoders import ConvDecoder
 from split_vae_torch.nn.encoders import ConvEncoder, GMVaeEncoder
 
@@ -78,12 +78,15 @@ class LGVae(nn.Module):
     The input's channels are x (3) then the augmented view (3)."""
 
     def __init__(self, global_latent_dims: int, local_latent_dims: int,
-                 image_hw: Tuple[int, int], device=None):
+                 image_hw: Tuple[int, int], device=None, dtype=None):
         super().__init__()
-        self.encoder_x = ConvEncoder(image_hw, 3, global_latent_dims, device)
-        self.encoder_x_hat = ConvEncoder(image_hw, 3, local_latent_dims, device)
-        self.decoder_x = ConvDecoder(global_latent_dims + local_latent_dims, image_hw, 6, device)
-        self.decoder_x_hat = ConvDecoder(local_latent_dims, image_hw, 6, device)
+        self.global_latent_dims, self.local_latent_dims = global_latent_dims, local_latent_dims
+        self.compute_dtype = dtype
+        self.encoder_x = ConvEncoder(image_hw, 3, global_latent_dims, device, dtype=dtype)
+        self.encoder_x_hat = ConvEncoder(image_hw, 3, local_latent_dims, device, dtype=dtype)
+        self.decoder_x = ConvDecoder(global_latent_dims + local_latent_dims, image_hw, 6, device,
+                                     dtype=dtype)
+        self.decoder_x_hat = ConvDecoder(local_latent_dims, image_hw, 6, device, dtype=dtype)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise) -> LGVaeOutput:
         """``training`` changes nothing here (no dropout); the sampling stays
@@ -119,12 +122,16 @@ class LGGMVae(nn.Module):
     its separate 'dropout' stream, put last here."""
 
     def __init__(self, global_latent_dims: int, local_latent_dims: int,
-                 image_hw: Tuple[int, int], y_size: int, tau: float, device=None):
+                 image_hw: Tuple[int, int], y_size: int, tau: float, device=None, dtype=None):
         super().__init__()
-        self.encoder_x = GMVaeEncoder(image_hw, 3, global_latent_dims, y_size, tau, device)
-        self.encoder_x_hat = ConvEncoder(image_hw, 3, local_latent_dims, device)
-        self.decoder_x = ConvDecoder(global_latent_dims + local_latent_dims, image_hw, 6, device)
-        self.decoder_x_hat = ConvDecoder(local_latent_dims, image_hw, 6, device)
+        self.global_latent_dims, self.local_latent_dims = global_latent_dims, local_latent_dims
+        self.y_size, self.compute_dtype = y_size, dtype
+        self.encoder_x = GMVaeEncoder(image_hw, 3, global_latent_dims, y_size, tau, device,
+                                      dtype=dtype)
+        self.encoder_x_hat = ConvEncoder(image_hw, 3, local_latent_dims, device, dtype=dtype)
+        self.decoder_x = ConvDecoder(global_latent_dims + local_latent_dims, image_hw, 6, device,
+                                     dtype=dtype)
+        self.decoder_x_hat = ConvDecoder(local_latent_dims, image_hw, 6, device, dtype=dtype)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise) -> LGGMVaeOutput:
         x, x_hat = inputs[..., :3], inputs[..., 3:]
@@ -166,10 +173,13 @@ class GMVae(nn.Module):
     two keep masks."""
 
     def __init__(self, global_latent_dims: int, image_hw: Tuple[int, int], y_size: int,
-                 tau: float, device=None):
+                 tau: float, device=None, dtype=None):
         super().__init__()
-        self.encoder_x = GMVaeEncoder(image_hw, 3, global_latent_dims, y_size, tau, device)
-        self.decoder_x = ConvDecoder(global_latent_dims, image_hw, 6, device)
+        self.global_latent_dims, self.y_size = global_latent_dims, y_size
+        self.compute_dtype = dtype
+        self.encoder_x = GMVaeEncoder(image_hw, 3, global_latent_dims, y_size, tau, device,
+                                      dtype=dtype)
+        self.decoder_x = ConvDecoder(global_latent_dims, image_hw, 6, device, dtype=dtype)
 
     def forward(self, inputs: torch.Tensor, training: bool, noise: Noise) -> GMVaeOutput:
         z_x, z_mean_x, z_sig_x, y, y_logits, z_prior_mean, z_prior_sig = self.encoder_x(
@@ -197,16 +207,20 @@ def get_vae_model(config, image_hw: Tuple[int, int], device="cuda",
                   generator: Optional[torch.Generator] = None) -> nn.Module:
     """Model factory on config.model (train/loop.py::build_vae_model): lgvae,
     lggmvae or gmvae; weights are glorot-uniform from ``generator`` (seeded
-    with config.seed on the model's device if None)."""
+    with config.seed on the model's device if None); every Dense and Conv
+    computes in config.compute_dtype."""
     device = require_device(device)
     hw = tuple(image_hw)
+    dtype = activation_dtype(config.compute_dtype)
     if config.model == "lgvae":
-        model = LGVae(config.global_latent_dims, config.local_latent_dims, hw, device=device)
+        model = LGVae(config.global_latent_dims, config.local_latent_dims, hw, device=device,
+                      dtype=dtype)
     elif config.model == "lggmvae":
         model = LGGMVae(config.global_latent_dims, config.local_latent_dims, hw, config.y_size,
-                        config.tau, device=device)
+                        config.tau, device=device, dtype=dtype)
     elif config.model == "gmvae":
-        model = GMVae(config.global_latent_dims, hw, config.y_size, config.tau, device=device)
+        model = GMVae(config.global_latent_dims, hw, config.y_size, config.tau, device=device,
+                      dtype=dtype)
     else:
         raise NotImplementedError(config.model)
     if generator is None:

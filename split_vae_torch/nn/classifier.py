@@ -31,17 +31,18 @@ class Classifier(nn.Module):
     """Takes SVHN's 32x32x3 images in [-1, 1], NHWC; gives the 10 class logits
     (the JAX package's ``Classifier(latent_dims=256, target_shape=10)``)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, dtype=None):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(3, device=device)
-        self.Conv_0 = Conv(3, 32, (6, 6), stride=2, device=device)
+        self.Conv_0 = Conv(3, 32, (6, 6), stride=2, device=device, dtype=dtype)
         self.BatchNorm_1 = BatchNorm(32, device=device)
-        self.Conv_1 = Conv(32, 64, (6, 6), stride=2, device=device)
+        self.Conv_1 = Conv(32, 64, (6, 6), stride=2, device=device, dtype=dtype)
         self.BatchNorm_2 = BatchNorm(64, device=device)
-        self.Conv_2 = Conv(64, 256, (4, 4), stride=2, device=device)
-        self.Dense_0 = Dense(4 * 4 * 256, 256, device)  # 32 px after three stride-2 convs
-        self.Dense_1 = Dense(256, 64, device)
-        self.Dense_2 = Dense(64, 10, device)
+        self.Conv_2 = Conv(64, 256, (4, 4), stride=2, device=device, dtype=dtype)
+        # 32 px after three stride-2 convs
+        self.Dense_0 = Dense(4 * 4 * 256, 256, device, dtype=dtype)
+        self.Dense_1 = Dense(256, 64, device, dtype=dtype)
+        self.Dense_2 = Dense(64, 10, device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 noise: Optional[Noise] = None) -> torch.Tensor:

@@ -9,7 +9,13 @@
 - ``Conv`` pads as TF/flax ``SAME`` does: total padding
   max((ceil(n/s) - 1)*s + k - n, 0), the odd pixel on the high side. Torch's
   symmetric ``padding=`` differs whenever that total is odd.
-- fp32 only.
+- The compute dtype of a Dense or Conv is given at construction: None (the
+  default) computes in the parameters' dtype; ``torch.bfloat16`` (``--compute_dtype
+  bfloat16``) casts the input, the weight and the bias to bfloat16 at each
+  call and gives a bfloat16 output, as flax's ``dtype=`` does
+  (``promote_dtype``): the product is rounded to bfloat16, then the bias
+  added in bfloat16, as flax adds it. The parameters stay float32 either
+  way, so their gradients and the optimizer's state do too.
 """
 
 from __future__ import annotations
@@ -22,6 +28,16 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def activation_dtype(name: str) -> Optional[torch.dtype]:
+    """The compute dtype of ``config.compute_dtype``: None for float32 (no
+    cast), ``torch.bfloat16`` for bfloat16."""
+    if name == "float32":
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype {name!r}: float32 or bfloat16")
+
+
 def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     """(low, high) padding of TF/flax SAME for size n, kernel k, stride s."""
     total = max((math.ceil(n / s) - 1) * s + k - n, 0)
@@ -32,29 +48,36 @@ class Dense(nn.Module):
     """flax Dense: y = x @ W^T + b, W stored [out, in] (flax keeps [in, out])."""
 
     def __init__(self, in_features: int, out_features: int, device=None,
-                 bias_init: float = 0.0):
+                 bias_init: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.full((out_features,), bias_init, device=device))
         self.bias_init = bias_init
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dt = self.dtype
+        if dt is None:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class Conv(nn.Module):
     """flax Conv on NHWC tensors, weight OIHW (flax keeps HWIO)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: Tuple[int, int],
-                 stride: int = 1, padding: str = "SAME", device=None):
+                 stride: int = 1, padding: str = "SAME", device=None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel_size, device=device))
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
         self.stride = stride
         self.padding = padding
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xn = x.permute(0, 3, 1, 2)
+        dt = self.dtype
+        xn = (x if dt is None else x.to(dt)).permute(0, 3, 1, 2)
         pad = 0
         if self.padding == "SAME":
             kh, kw = self.weight.shape[2:]
@@ -64,8 +87,11 @@ class Conv(nn.Module):
                 pad = (t, l)
             else:
                 xn = F.pad(xn, (l, r, t, b))
-        y = F.conv2d(xn, self.weight, self.bias, stride=self.stride, padding=pad)
-        return y.permute(0, 2, 3, 1)
+        if dt is None:
+            y = F.conv2d(xn, self.weight, self.bias, stride=self.stride, padding=pad)
+            return y.permute(0, 2, 3, 1)
+        y = F.conv2d(xn, self.weight.to(dt), None, stride=self.stride, padding=pad)
+        return y.permute(0, 2, 3, 1) + self.bias.to(dt)
 
 
 class BatchNorm(nn.Module):
@@ -90,6 +116,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        x = x.to(self.weight.dtype)  # flax computes in the promoted dtype: bf16 inputs go up
         if training:
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dim=dims)

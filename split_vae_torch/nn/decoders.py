@@ -30,16 +30,17 @@ class ConvDecoder(nn.Module):
     """Dense -> [conv -> resize] x 3 -> conv(2*C)."""
 
     def __init__(self, in_features: int, image_hw: Tuple[int, int], out_channels: int = 6,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.image_hw = tuple(image_hw)
         self.out_channels = out_channels
         h, w = image_hw
-        self.Dense_0 = Dense(in_features, h // 8 * (w // 8) * 128, device)
-        self.Conv_0 = Conv(128, 128, (4, 4), device=device)
-        self.Conv_1 = Conv(128, 64, (4, 4), device=device)
-        self.Conv_2 = Conv(64, 32, (6, 6), device=device)
-        self.Conv_3 = Resize2xConv(32, out_channels, (h, w), device, kernel_size=(6, 6))
+        self.Dense_0 = Dense(in_features, h // 8 * (w // 8) * 128, device, dtype=dtype)
+        self.Conv_0 = Conv(128, 128, (4, 4), device=device, dtype=dtype)
+        self.Conv_1 = Conv(128, 64, (4, 4), device=device, dtype=dtype)
+        self.Conv_2 = Conv(64, 32, (6, 6), device=device, dtype=dtype)
+        self.Conv_3 = Resize2xConv(32, out_channels, (h, w), device, kernel_size=(6, 6),
+                                   dtype=dtype)
 
     def forward(self, z: torch.Tensor):
         h, w = self.image_hw

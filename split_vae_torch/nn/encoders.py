@@ -31,14 +31,14 @@ class ConvEncoder(nn.Module):
     softplus-sigma heads and one sample: (z, z_mean, z_sig)."""
 
     def __init__(self, image_hw: Tuple[int, int], in_channels: int, latent_dims: int = 32,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
-        self.Conv_0 = Conv(in_channels, 32, (6, 6), stride=2, device=device)
-        self.Conv_1 = Conv(32, 64, (6, 6), stride=2, device=device)
-        self.Conv_2 = Conv(64, 128, (4, 4), stride=2, device=device)
+        self.Conv_0 = Conv(in_channels, 32, (6, 6), stride=2, device=device, dtype=dtype)
+        self.Conv_1 = Conv(32, 64, (6, 6), stride=2, device=device, dtype=dtype)
+        self.Conv_2 = Conv(64, 128, (4, 4), stride=2, device=device, dtype=dtype)
         flat = _flat_size(image_hw, 128)
-        self.Dense_0 = Dense(flat, latent_dims, device)
-        self.Dense_1 = Dense(flat, latent_dims, device)
+        self.Dense_0 = Dense(flat, latent_dims, device, dtype=dtype)
+        self.Dense_1 = Dense(flat, latent_dims, device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, noise: Noise):
         x = F.relu(self.Conv_0(x))
@@ -47,7 +47,7 @@ class ConvEncoder(nn.Module):
         x = flatten(x)
         z_mean = self.Dense_0(x)
         z_sig = F.softplus(self.Dense_1(x))
-        return reparameterize(z_mean, z_sig, noise.normal(z_sig.shape)), z_mean, z_sig
+        return reparameterize(z_mean, z_sig, noise.normal_like(z_sig)), z_mean, z_sig
 
 
 class FCEncoder(nn.Module):
@@ -60,14 +60,14 @@ class FCEncoder(nn.Module):
     """
 
     def __init__(self, in_features: int, latent_dims: int = 32, variational: bool = True,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.variational = variational
-        self.Dense_0 = Dense(in_features, 1024, device)
-        self.Dense_1 = Dense(1024, 512, device)
-        self.Dense_2 = Dense(512, latent_dims, device)
+        self.Dense_0 = Dense(in_features, 1024, device, dtype=dtype)
+        self.Dense_1 = Dense(1024, 512, device, dtype=dtype)
+        self.Dense_2 = Dense(512, latent_dims, device, dtype=dtype)
         if variational:
-            self.Dense_3 = Dense(512, latent_dims, device)
+            self.Dense_3 = Dense(512, latent_dims, device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, noise: Optional[Noise] = None):
         x = F.relu(self.Dense_1(F.relu(self.Dense_0(flatten(x)))))
@@ -75,7 +75,7 @@ class FCEncoder(nn.Module):
             return F.relu(self.Dense_2(x))
         z_mean = self.Dense_2(x)
         z_sig = self.Dense_3(x)  # the raw head taken as sigma (quirk)
-        return reparameterize(z_mean, z_sig, noise.normal(z_sig.shape)), z_mean, z_sig
+        return reparameterize(z_mean, z_sig, noise.normal_like(z_sig)), z_mean, z_sig
 
 
 GM_DROPOUT = 0.2
@@ -102,25 +102,29 @@ class GMVaeEncoder(nn.Module):
     """
 
     def __init__(self, image_hw: Tuple[int, int], in_channels: int, latent_dims: int,
-                 y_size: int, tau: float, device=None):
+                 y_size: int, tau: float, device=None, dtype=None):
         super().__init__()
         self.latent_dims, self.y_size, self.tau = latent_dims, y_size, tau
         self.flat = _flat_size(image_hw, 128)
-        self.h_conv1 = Conv(in_channels, 128, (6, 6), stride=2, device=device)
-        self.h_conv2 = Conv(128, 128, (6, 6), stride=2, device=device)
-        self.h_conv3 = Conv(128, 128, (4, 4), stride=2, device=device)
-        self.y_dense1 = Dense(self.flat, 1024, device)
-        self.y_dense2 = Dense(1024, 128, device)
-        self.y_head = Dense(128, y_size, device)
-        self.h_top_dense = Dense(y_size, 512, device)
-        self.z_prior_mean_head = Dense(y_size, latent_dims, device)
-        self.z_prior_sig_head = Dense(y_size, latent_dims, device, bias_init=1.0)
-        self.e1 = Dense(self.flat, 512, device)
-        self.z_mean_head = Dense(512, latent_dims, device)
-        self.z_sig_head = Dense(512, latent_dims, device, bias_init=1.0)
+        self.h_conv1 = Conv(in_channels, 128, (6, 6), stride=2, device=device, dtype=dtype)
+        self.h_conv2 = Conv(128, 128, (6, 6), stride=2, device=device, dtype=dtype)
+        self.h_conv3 = Conv(128, 128, (4, 4), stride=2, device=device, dtype=dtype)
+        self.y_dense1 = Dense(self.flat, 1024, device, dtype=dtype)
+        self.y_dense2 = Dense(1024, 128, device, dtype=dtype)
+        self.y_head = Dense(128, y_size, device, dtype=dtype)
+        self.h_top_dense = Dense(y_size, 512, device, dtype=dtype)
+        self.z_prior_mean_head = Dense(y_size, latent_dims, device, dtype=dtype)
+        self.z_prior_sig_head = Dense(y_size, latent_dims, device, bias_init=1.0,
+                                      dtype=dtype)
+        self.e1 = Dense(self.flat, 512, device, dtype=dtype)
+        self.z_mean_head = Dense(512, latent_dims, device, dtype=dtype)
+        self.z_sig_head = Dense(512, latent_dims, device, bias_init=1.0, dtype=dtype)
 
     def sample_draws(self, noise: Noise, batch: int):
-        return noise.uniform((batch, self.y_size)), noise.normal((batch, self.latent_dims))
+        """In the compute dtype, as the logits and sigmas they perturb."""
+        dt = self.z_sig_head.dtype
+        return (noise.uniform((batch, self.y_size), dt),
+                noise.normal((batch, self.latent_dims), dt))
 
     def keep_draws(self, noise: Noise, batch: int):
         return (noise.keep((batch, 1024), GM_DROPOUT),

@@ -34,7 +34,7 @@ def _encode_image(convs, dense_mean, dense_sig, x: torch.Tensor, noise: Noise):
     x = flatten(x)
     z_mean = dense_mean(x)
     z_sig = F.softplus(dense_sig(x))
-    return reparameterize(z_mean, z_sig, noise.normal(z_sig.shape)), z_mean, z_sig
+    return reparameterize(z_mean, z_sig, noise.normal_like(z_sig)), z_mean, z_sig
 
 
 def _decode_image(dense, conv, up1, up2, up3, z: torch.Tensor, image_hw) -> torch.Tensor:
@@ -62,13 +62,13 @@ class ImageEncoder(nn.Module):
     """Conv VAE encoder for backgrounds and the local path (spair/spair.py:110-133)."""
 
     def __init__(self, image_hw: Tuple[int, int], num_channel: int, latent_size: int,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
-        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device)
-        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device)
-        self.Conv_2 = Conv(64, 128, (3, 3), stride=2, device=device)
-        self.Dense_0 = Dense(_encoded_features(image_hw), latent_size, device)
-        self.Dense_1 = Dense(_encoded_features(image_hw), latent_size, device)
+        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device, dtype=dtype)
+        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device, dtype=dtype)
+        self.Conv_2 = Conv(64, 128, (3, 3), stride=2, device=device, dtype=dtype)
+        self.Dense_0 = Dense(_encoded_features(image_hw), latent_size, device, dtype=dtype)
+        self.Dense_1 = Dense(_encoded_features(image_hw), latent_size, device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, noise: Noise):
         return _encode_image((self.Conv_0, self.Conv_1, self.Conv_2), self.Dense_0,
@@ -79,15 +79,15 @@ class ImageDecoder(nn.Module):
     """Conv decoder to a sigmoid image (spair/spair.py:157-182)."""
 
     def __init__(self, latent_size: int, image_hw: Tuple[int, int], num_channel: int = 3,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.image_hw = tuple(image_hw)
         h, w = image_hw
-        self.Dense_0 = Dense(latent_size, h // 8 * (w // 8) * 128, device)
-        self.Conv_0 = Conv(128, 128, (3, 3), device=device)
-        self.Conv_1 = Resize2xConv(128, 64, (h // 4, w // 4), device)
-        self.Conv_2 = Resize2xConv(64, 32, (h // 2, w // 2), device)
-        self.Conv_3 = Resize2xConv(32, num_channel, (h, w), device)
+        self.Dense_0 = Dense(latent_size, h // 8 * (w // 8) * 128, device, dtype=dtype)
+        self.Conv_0 = Conv(128, 128, (3, 3), device=device, dtype=dtype)
+        self.Conv_1 = Resize2xConv(128, 64, (h // 4, w // 4), device, dtype=dtype)
+        self.Conv_2 = Resize2xConv(64, 32, (h // 2, w // 2), device, dtype=dtype)
+        self.Conv_3 = Resize2xConv(32, num_channel, (h, w), device, dtype=dtype)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return _decode_image(self.Dense_0, self.Conv_0, self.Conv_1, self.Conv_2, self.Conv_3,
@@ -100,20 +100,20 @@ class BackgroundModel(nn.Module):
     ``Dense_2`` and ``Conv_3`` .. ``Conv_6``."""
 
     def __init__(self, image_hw: Tuple[int, int], bg_latent_size: int, num_channel: int = 3,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.image_hw = tuple(image_hw)
         h, w = image_hw
-        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device)
-        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device)
-        self.Conv_2 = Conv(64, 128, (3, 3), stride=2, device=device)
-        self.Dense_0 = Dense(_encoded_features(image_hw), bg_latent_size, device)
-        self.Dense_1 = Dense(_encoded_features(image_hw), bg_latent_size, device)
-        self.Dense_2 = Dense(bg_latent_size, h // 8 * (w // 8) * 128, device)
-        self.Conv_3 = Conv(128, 128, (3, 3), device=device)
-        self.Conv_4 = Resize2xConv(128, 64, (h // 4, w // 4), device)
-        self.Conv_5 = Resize2xConv(64, 32, (h // 2, w // 2), device)
-        self.Conv_6 = Resize2xConv(32, num_channel, (h, w), device)
+        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device, dtype=dtype)
+        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device, dtype=dtype)
+        self.Conv_2 = Conv(64, 128, (3, 3), stride=2, device=device, dtype=dtype)
+        self.Dense_0 = Dense(_encoded_features(image_hw), bg_latent_size, device, dtype=dtype)
+        self.Dense_1 = Dense(_encoded_features(image_hw), bg_latent_size, device, dtype=dtype)
+        self.Dense_2 = Dense(bg_latent_size, h // 8 * (w // 8) * 128, device, dtype=dtype)
+        self.Conv_3 = Conv(128, 128, (3, 3), device=device, dtype=dtype)
+        self.Conv_4 = Resize2xConv(128, 64, (h // 4, w // 4), device, dtype=dtype)
+        self.Conv_5 = Resize2xConv(64, 32, (h // 2, w // 2), device, dtype=dtype)
+        self.Conv_6 = Resize2xConv(32, num_channel, (h, w), device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, noise: Noise):
         z, z_mean, z_sig = _encode_image((self.Conv_0, self.Conv_1, self.Conv_2), self.Dense_0,
@@ -126,19 +126,19 @@ class BackgroundModel(nn.Module):
 class ImageEncoderDense(nn.Module):
     """MLP VAE encoder 1024 -> 500 (spair/spair.py:135-154); flattens the NHWC image."""
 
-    def __init__(self, in_features: int, latent_size: int, device=None):
+    def __init__(self, in_features: int, latent_size: int, device=None, dtype=None):
         super().__init__()
-        self.Dense_0 = Dense(in_features, 1024, device)
-        self.Dense_1 = Dense(1024, 500, device)
-        self.Dense_2 = Dense(500, latent_size, device)
-        self.Dense_3 = Dense(500, latent_size, device)
+        self.Dense_0 = Dense(in_features, 1024, device, dtype=dtype)
+        self.Dense_1 = Dense(1024, 500, device, dtype=dtype)
+        self.Dense_2 = Dense(500, latent_size, device, dtype=dtype)
+        self.Dense_3 = Dense(500, latent_size, device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, noise: Noise):
         x = F.relu(self.Dense_0(flatten(x)))
         x = F.relu(self.Dense_1(x))
         z_mean = self.Dense_2(x)
         z_sig = F.softplus(self.Dense_3(x))
-        z = reparameterize(z_mean, z_sig, noise.normal(z_sig.shape))
+        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig))
         return z, z_mean, z_sig
 
 
@@ -146,14 +146,14 @@ class ImageDecoderDense(nn.Module):
     """MLP decoder 500 -> 1024 -> H*W*C sigmoid (spair/spair.py:185-202)."""
 
     def __init__(self, latent_size: int, image_hw: Tuple[int, int], num_channel: int = 3,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.image_hw = tuple(image_hw)
         self.num_channel = num_channel
         h, w = image_hw
-        self.Dense_0 = Dense(latent_size, 500, device)
-        self.Dense_1 = Dense(500, 1024, device)
-        self.Dense_2 = Dense(1024, h * w * num_channel, device)
+        self.Dense_0 = Dense(latent_size, 500, device, dtype=dtype)
+        self.Dense_1 = Dense(500, 1024, device, dtype=dtype)
+        self.Dense_2 = Dense(1024, h * w * num_channel, device, dtype=dtype)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.Dense_0(z))
@@ -165,14 +165,15 @@ class ImageDecoderDense(nn.Module):
 class ObjEncoder(nn.Module):
     """Per-glimpse encoder -> z_what on [B, K, os, os, C] (spair/spair.py:246-273)."""
 
-    def __init__(self, object_size: int, num_channel: int, latent_size: int, device=None):
+    def __init__(self, object_size: int, num_channel: int, latent_size: int, device=None,
+                 dtype=None):
         super().__init__()
-        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device)
-        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device)
+        self.Conv_0 = Conv(num_channel, 32, (3, 3), stride=2, device=device, dtype=dtype)
+        self.Conv_1 = Conv(32, 64, (3, 3), stride=2, device=device, dtype=dtype)
         side = _conv_out(_conv_out(object_size, 2), 2)
-        self.Dense_0 = Dense(side * side * 64, latent_size * 2, device)
-        self.Dense_1 = Dense(latent_size * 2, latent_size, device)
-        self.Dense_2 = Dense(latent_size * 2, latent_size, device)
+        self.Dense_0 = Dense(side * side * 64, latent_size * 2, device, dtype=dtype)
+        self.Dense_1 = Dense(latent_size * 2, latent_size, device, dtype=dtype)
+        self.Dense_2 = Dense(latent_size * 2, latent_size, device, dtype=dtype)
 
     def forward(self, glimpses: torch.Tensor, noise: Noise):
         b, k, gh, gw, c = glimpses.shape
@@ -182,7 +183,7 @@ class ObjEncoder(nn.Module):
         hdn = F.relu(self.Dense_0(flatten(x)))
         z_mean = self.Dense_1(hdn)
         z_sig = F.softplus(self.Dense_2(hdn))
-        z = reparameterize(z_mean, z_sig, noise.normal(z_sig.shape))
+        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig))
         return z, z_mean, z_sig
 
 
@@ -194,16 +195,17 @@ class ObjEncoderScramble(nn.Module):
     """
 
     def __init__(self, object_size: int, num_channel: int, latent_size: int, patch_size: int,
-                 local_latent_size: int, device=None):
+                 local_latent_size: int, device=None, dtype=None):
         super().__init__()
         self.patch_size = patch_size
         side = _conv_out(_conv_out(object_size, 2), 2)
+        dd = dict(device=device, dtype=dtype)
         for prefix, latent in (("what", latent_size), ("local", local_latent_size)):
-            setattr(self, f"{prefix}_c1", Conv(num_channel, 32, (3, 3), stride=2, device=device))
-            setattr(self, f"{prefix}_c2", Conv(32, 64, (3, 3), stride=2, device=device))
-            setattr(self, f"{prefix}_d1", Dense(side * side * 64, latent_size * 2, device))
-            setattr(self, f"{prefix}_mu", Dense(latent_size * 2, latent, device))
-            setattr(self, f"{prefix}_sigma", Dense(latent_size * 2, latent, device))
+            setattr(self, f"{prefix}_c1", Conv(num_channel, 32, (3, 3), stride=2, **dd))
+            setattr(self, f"{prefix}_c2", Conv(32, 64, (3, 3), stride=2, **dd))
+            setattr(self, f"{prefix}_d1", Dense(side * side * 64, latent_size * 2, **dd))
+            setattr(self, f"{prefix}_mu", Dense(latent_size * 2, latent, **dd))
+            setattr(self, f"{prefix}_sigma", Dense(latent_size * 2, latent, **dd))
 
     def _vae_head(self, v: torch.Tensor, prefix: str):
         v = F.relu(getattr(self, f"{prefix}_c1")(v))
@@ -224,9 +226,9 @@ class ObjEncoderScramble(nn.Module):
         x_hat = x_hat.reshape(b * k, gh, gw, c)
 
         z_what_mean, z_what_sigma = self._vae_head(x, "what")
-        z_what = reparameterize(z_what_mean, z_what_sigma, noise.normal(z_what_sigma.shape))
+        z_what = reparameterize(z_what_mean, z_what_sigma, noise.normal_like(z_what_sigma))
         z_l_mean, z_l_sig = self._vae_head(x_hat, "local")
-        z_l = reparameterize(z_l_mean, z_l_sig, noise.normal(z_l_sig.shape))
+        z_l = reparameterize(z_l_mean, z_l_sig, noise.normal_like(z_l_sig))
         return (z_what, z_what_mean, z_what_sigma, z_l, z_l_mean, z_l_sig,
                 x_hat.reshape(b, k, gh, gw, c))
 
@@ -234,15 +236,16 @@ class ObjEncoderScramble(nn.Module):
 class GlimpseDecoder(nn.Module):
     """z_l -> the scrambled glimpse's reconstruction [B*K, os, os, C], sigmoid."""
 
-    def __init__(self, object_size: int, num_channel: int, latent_size: int, device=None):
+    def __init__(self, object_size: int, num_channel: int, latent_size: int, device=None,
+                 dtype=None):
         super().__init__()
         self.object_size = object_size
         os_ = object_size
-        self.Dense_0 = Dense(latent_size, latent_size * 2, device)
-        self.Dense_1 = Dense(latent_size * 2, os_ // 4 * (os_ // 4) * 32, device)
-        self.Conv_0 = Conv(32, 64, (3, 3), device=device)
-        self.Conv_1 = Resize2xConv(64, 32, (os_ // 2, os_ // 2), device)
-        self.Conv_2 = Resize2xConv(32, num_channel, (os_, os_), device)
+        self.Dense_0 = Dense(latent_size, latent_size * 2, device, dtype=dtype)
+        self.Dense_1 = Dense(latent_size * 2, os_ // 4 * (os_ // 4) * 32, device, dtype=dtype)
+        self.Conv_0 = Conv(32, 64, (3, 3), device=device, dtype=dtype)
+        self.Conv_1 = Resize2xConv(64, 32, (os_ // 2, os_ // 2), device, dtype=dtype)
+        self.Conv_2 = Resize2xConv(32, num_channel, (os_, os_), device, dtype=dtype)
 
     def forward(self, z_l: torch.Tensor) -> torch.Tensor:
         os_ = self.object_size
@@ -258,16 +261,16 @@ class ObjDecoder(nn.Module):
     """z_what -> RGB object + alpha, both sigmoid (spair/spair.py:341-366)."""
 
     def __init__(self, object_size: int, num_channel: int, in_features: int,
-                 latent_size: int, device=None):
+                 latent_size: int, device=None, dtype=None):
         super().__init__()
         self.object_size = object_size
         self.num_channel = num_channel
         os_ = object_size
-        self.Dense_0 = Dense(in_features, latent_size * 2, device)
-        self.Dense_1 = Dense(latent_size * 2, os_ // 4 * (os_ // 4) * 32, device)
-        self.Conv_0 = Conv(32, 64, (3, 3), device=device)
-        self.Conv_1 = Resize2xConv(64, 32, (os_ // 2, os_ // 2), device)
-        self.Conv_2 = Resize2xConv(32, num_channel + 1, (os_, os_), device)
+        self.Dense_0 = Dense(in_features, latent_size * 2, device, dtype=dtype)
+        self.Dense_1 = Dense(latent_size * 2, os_ // 4 * (os_ // 4) * 32, device, dtype=dtype)
+        self.Conv_0 = Conv(32, 64, (3, 3), device=device, dtype=dtype)
+        self.Conv_1 = Resize2xConv(64, 32, (os_ // 2, os_ // 2), device, dtype=dtype)
+        self.Conv_2 = Resize2xConv(32, num_channel + 1, (os_, os_), device, dtype=dtype)
 
     def forward(self, z_what: torch.Tensor):
         os_ = self.object_size
@@ -297,35 +300,37 @@ class SpairEncoder(nn.Module):
     def __init__(self, image_hw: Tuple[int, int], num_channel: int, object_size: int,
                  latent_size: int, tau: float, concat: bool = False,
                  glimpse_local: bool = False, patch_size: int = 4,
-                 local_latent_size: int = 64, device=None):
+                 local_latent_size: int = 64, device=None, dtype=None):
         super().__init__()
         self.object_size = object_size
         self.tau = tau
         self.concat = concat
         self.glimpse_local = glimpse_local
-        self.conv1 = Conv(num_channel, 128, (4, 4), stride=2, device=device)
-        self.conv2 = Conv(128, 128, (4, 4), stride=2, device=device)
-        self.conv3 = Conv(128, 128, (4, 4), stride=3, device=device)
-        self.z1 = Conv(128, 128, (1, 1), padding="VALID", device=device)
-        self.z2 = Conv(128, 128, (1, 1), padding="VALID", device=device)
-        self.z3 = Conv(128, 100, (1, 1), padding="VALID", device=device)
+        self.conv1 = Conv(num_channel, 128, (4, 4), stride=2, device=device, dtype=dtype)
+        self.conv2 = Conv(128, 128, (4, 4), stride=2, device=device, dtype=dtype)
+        self.conv3 = Conv(128, 128, (4, 4), stride=3, device=device, dtype=dtype)
+        self.z1 = Conv(128, 128, (1, 1), padding="VALID", device=device, dtype=dtype)
+        self.z2 = Conv(128, 128, (1, 1), padding="VALID", device=device, dtype=dtype)
+        self.z3 = Conv(128, 100, (1, 1), padding="VALID", device=device, dtype=dtype)
         feat = 100 + (16 if concat else 0)
         nw, npt = self.n_z_where, self.n_pass_through
-        self.where_d1 = Dense(feat, 128, device)
-        self.where_d2 = Dense(128, 64, device)
-        self.where_d3 = Dense(64, nw * 2 + npt, device)
-        self.depth_d1 = Dense(feat + npt + nw + latent_size, 64, device)
-        self.depth_d2 = Dense(64, 2 + npt, device)
-        self.pres_d1 = Dense(feat + npt + nw + latent_size + 1, 64, device)
-        self.pres_d2 = Dense(64, 1, device)
+        self.where_d1 = Dense(feat, 128, device, dtype=dtype)
+        self.where_d2 = Dense(128, 64, device, dtype=dtype)
+        self.where_d3 = Dense(64, nw * 2 + npt, device, dtype=dtype)
+        self.depth_d1 = Dense(feat + npt + nw + latent_size, 64, device, dtype=dtype)
+        self.depth_d2 = Dense(64, 2 + npt, device, dtype=dtype)
+        self.pres_d1 = Dense(feat + npt + nw + latent_size + 1, 64, device, dtype=dtype)
+        self.pres_d2 = Dense(64, 1, device, dtype=dtype)
         if glimpse_local:
             self.obj_encoder = ObjEncoderScramble(object_size, num_channel, latent_size,
-                                                  patch_size, local_latent_size, device)
+                                                  patch_size, local_latent_size, device,
+                                                  dtype=dtype)
         else:
-            self.obj_encoder = ObjEncoder(object_size, num_channel, latent_size, device)
+            self.obj_encoder = ObjEncoder(object_size, num_channel, latent_size, device,
+                                          dtype=dtype)
         if concat:
-            self.zl_d1 = Dense(local_latent_size, 16, device)
-            self.zl_d2 = Dense(16, 16, device)
+            self.zl_d1 = Dense(local_latent_size, 16, device, dtype=dtype)
+            self.zl_d2 = Dense(16, 16, device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, noise: Noise, z_l: Optional[torch.Tensor] = None):
         b = x.shape[0]
@@ -351,7 +356,7 @@ class SpairEncoder(nn.Module):
         z_where_mean = wh[:, :nw]
         z_where_sigma = F.softplus(wh[:, nw:2 * nw] - 1.0)
         features_1 = F.relu(wh[:, 2 * nw:])
-        z_where = reparameterize(z_where_mean, z_where_sigma, noise.normal(z_where_sigma.shape))
+        z_where = reparameterize(z_where_mean, z_where_sigma, noise.normal_like(z_where_sigma))
 
         partial_program = z_where
         z_where_grid = z_where.reshape(b, gh, gw, nw)
@@ -370,14 +375,14 @@ class SpairEncoder(nn.Module):
         z_depth_mean = dh[:, :1]
         z_depth_sigma = F.softplus(dh[:, 1:2])
         features_2 = F.relu(dh[:, 2:])
-        z_depth = reparameterize(z_depth_mean, z_depth_sigma, noise.normal(z_depth_sigma.shape))
+        z_depth = reparameterize(z_depth_mean, z_depth_sigma, noise.normal_like(z_depth_sigma))
         partial_program = torch.cat([partial_program, z_depth], dim=1)
 
         layer_inp = torch.cat([features, features_2, partial_program], dim=1)
 
         z_pres_logits = torch.clamp(self.pres_d2(F.relu(self.pres_d1(layer_inp))), -10.0, 10.0)
         z_pres_pre_sigmoid = concrete_binary_pre_sigmoid_sample(
-            z_pres_logits, self.tau, noise.uniform(z_pres_logits.shape))
+            z_pres_logits, self.tau, noise.uniform_like(z_pres_logits))
         z_pres = torch.sigmoid(z_pres_pre_sigmoid)
 
         def grid(v):
@@ -401,13 +406,13 @@ class SpairDecoder(nn.Module):
     """
 
     def __init__(self, image_hw: Tuple[int, int], object_size: int, num_channel: int,
-                 in_features: int, latent_size: int, device=None):
+                 in_features: int, latent_size: int, device=None, dtype=None):
         super().__init__()
         self.image_hw = tuple(image_hw)
         self.object_size = object_size
         self.num_channel = num_channel
         self.ObjDecoder_0 = ObjDecoder(object_size, num_channel, in_features, latent_size,
-                                       device)
+                                       device, dtype=dtype)
 
     def forward(self, z_what: torch.Tensor, z_where: torch.Tensor, fused: bool = False):
         b, gh, gw, d = z_what.shape
@@ -432,14 +437,16 @@ def fused_decode_render(decoder: SpairDecoder, noise: Noise, z_what, z_where, z_
     The math of decoder(...) -> render(training=True), with the per-cell
     canvases kept out of device memory by the kernel pair on a GPU:
     the full-canvas pair, or with ``windowed`` the row-windowed pair (the same
-    function, each cell confined to its row band). Returns
-    (obj_recon_unnorm, obj_recon_alpha, obj_bbox_mask, x_recon).
+    function, each cell confined to its row band). The kernels take float32:
+    bfloat16 activations go up at their boundary, as the JAX package casts
+    them for its Pallas kernels (split_vae_tpu/nn/spair_nets.py:424-431).
+    Returns (obj_recon_unnorm, obj_recon_alpha, obj_bbox_mask, x_recon).
     """
     obj_ru, obj_ra, (ys, xs), bbox = decoder(z_what, z_where, fused=True)
-    concat = torch.cat([obj_ru, obj_ra], dim=-1)
+    concat = torch.cat([obj_ru, obj_ra], dim=-1).float()
     b = concat.shape[0]
-    zp = z_pres.reshape(b, -1)
-    wd = (torch.sigmoid(-z_depth) + 0.5).reshape(b, -1)
+    zp = z_pres.reshape(b, -1).float()
+    wd = (torch.sigmoid(-z_depth.float()) + 0.5).reshape(b, -1)
     bg_img = torch.broadcast_to(torch.as_tensor(bg_recon, dtype=torch.float32,
                                                 device=concat.device),
                                 (b, image_hw[0], image_hw[1], num_channel))
@@ -458,7 +465,13 @@ def render(obj_full_recon_unnorm: torch.Tensor, background_img, z_depth: torch.T
     Train: the Concrete z_pres sample, and N(0, 0.01) noise on the object RGB
     before clipping (``eps`` [B,K,H,W,C] are the standard normals, drawn from
     ``generator`` if None). Test: round(sigmoid(z_pres_logits)) floored at 1e-8.
+    The composite runs in float32 whatever the activations' dtype
+    (split_vae_tpu/nn/spair_nets.py:508-514).
     """
+    obj_full_recon_unnorm = obj_full_recon_unnorm.float()
+    z_depth, z_pres = z_depth.float(), z_pres.float()
+    if z_pres_logits is not None:
+        z_pres_logits = z_pres_logits.float()
     b = z_depth.shape[0]
     k = z_depth.shape[1] * z_depth.shape[2]
     depth_w = (torch.sigmoid(-z_depth.reshape(b, k)) + 0.5)

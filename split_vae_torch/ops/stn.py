@@ -136,9 +136,11 @@ def paste_interp_weights_ys(z_where: torch.Tensor, out_hw: Tuple[int, int],
 
 def stn_paste(objs: torch.Tensor, z_where: torch.Tensor, out_hw: Tuple[int, int],
               cell_ratio: float = DEFAULT_CELL_RATIO, eps: float = 1e-5):
-    """Paste objects [B,K,h,w,C] onto canvases -> ([B,K,H,W,C], bbox [B,K,4])."""
+    """Paste objects [B,K,h,w,C] onto canvases -> ([B,K,H,W,C], bbox [B,K,4]);
+    bfloat16 objects go up to the geometry's float32, as jnp.einsum promotes them."""
     wy, wx, bbox = paste_interp_weights(z_where, out_hw, (objs.shape[2], objs.shape[3]),
                                         cell_ratio, eps)
+    objs = objs.to(torch.promote_types(objs.dtype, wy.dtype))
     tmp = torch.einsum("bkpi,bkijc->bkpjc", wy, objs)
     out = torch.einsum("bkpjc,bkqj->bkpqc", tmp, wx)
     return out, bbox

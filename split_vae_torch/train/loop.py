@@ -16,10 +16,15 @@ logs its test accuracy under ``meta/``, and adds the probe accuracies
 (LGVae, LGGMVae) and the cluster accuracy (LGGMVae, GMVae) to every test
 sweep, as the JAX loop does.
 
-The step's metrics stay on the device until an interval's ``result()``.
-Not ported yet, and refused with the ROADMAP item that brings them: bfloat16
-(A7), more than one shard or process (A8). The PNG artifacts (A5), which the
-JAX loop draws inside ``try`` and which no metric reads, are left out.
+Every eval also writes the JAX loop's PNG artifacts into the run directory
+(``viz/``), under its filenames, inside the JAX loop's ``try`` (a figure
+that fails prints ``[viz] skipped: ...`` and never stops training); their
+draws come from the eval generator, after the test sweep's. The step timer
+restarts after them, so ``train/imgs_per_sec`` leaves them out.
+``--compute_dtype bfloat16`` builds every Dense and Conv in bfloat16 (the
+parameters stay float32). The step's metrics stay on the device until an
+interval's ``result()``. Not ported yet, and refused with the ROADMAP item
+that brings it: more than one shard or process (A8).
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from split_vae_torch.data.loader import (
     to_device,
 )
 from split_vae_torch.data.multicub import get_multicub
-from split_vae_torch.models.spair import get_spair_model
+from split_vae_torch.models.spair import LGGlimpseSPAIR, LGSPAIR, get_spair_model
 from split_vae_torch.models.vae import GMVae, LGGMVae, get_vae_model
 from split_vae_torch.train import probes as probes_mod
 from split_vae_torch.train.optim import (
@@ -61,6 +66,8 @@ from split_vae_torch.train.steps import (
     make_vae_eval_step,
     make_vae_train_step,
 )
+from split_vae_torch.viz import artifacts as viz
+from split_vae_torch.viz import spair_artifacts as sviz
 
 
 def build_vae_model(config, image_hw, device="cuda") -> Tuple[torch.nn.Module,
@@ -92,9 +99,6 @@ def _train_iterator(train_ds: ArrayDataset, config, device: torch.device):
 
 def _start(config) -> torch.device:
     """Refuses what is not ported yet; the device; the debug mode."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(f"--compute_dtype {config.compute_dtype}: bfloat16 comes "
-                                  f"with ROADMAP A7")
     if (config.num_data_shards > 1 or config.num_model_shards > 1 or config.coordinator
             or (config.num_processes or 1) > 1):
         raise NotImplementedError("more than one data or model shard, or process, comes with "
@@ -102,7 +106,6 @@ def _start(config) -> torch.device:
     device = setup_runtime(config.platform)
     if config.debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    print("[viz] the PNG artifacts are not ported yet (ROADMAP A5); no metric reads them")
     return device
 
 
@@ -114,8 +117,9 @@ def _resume(config, state: TrainState) -> None:
 
 def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir: str,
            max_steps: Optional[int], meta: Optional[Dict[str, float]] = None) -> TrainState:
-    """The JAX loop's schedule around ``train_step``; ``evaluate(step, logger)``
-    runs the test sweeps; ``meta`` is logged first, under ``meta/``.
+    """The JAX loop's schedule around ``train_step``; ``evaluate(step, logger,
+    batch)`` runs the test sweeps and the PNGs (``batch`` is the last train
+    batch); ``meta`` is logged first, under ``meta/``.
     ``--profile_dir`` traces step 100."""
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     train_metrics = MeanMetrics()
@@ -144,7 +148,7 @@ def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir:
                 tm["imgs_per_sec"] = rate
                 logger.log(step, tm, prefix="train/")
                 train_metrics.reset()
-                evaluate(step, logger)
+                evaluate(step, logger, batch)
                 timer.reset()
             if (config.checkpoint_interval and step % config.checkpoint_interval == 0) \
                     or step == total_steps:
@@ -196,20 +200,22 @@ def train_vae(config, max_steps: Optional[int] = None):
     def train_step(state, batch):
         return vae_step(state, batch[0] if labeled else batch)
 
-    def evaluate(step, logger):
-        """The full test sweep (vae/trainer.py:317-349)."""
+    def evaluate(step, logger, batch):
+        """The full test sweep (vae/trainer.py:317-349), then the PNGs
+        (vae/trainer.py:385-403) of the last test batch."""
         test_metrics = MeanMetrics()
         all_labels, all_pred = [], []
+        last_images = None
         for tb in iterate_batches(test_ds, config.batch_size, shuffle=False):
             t_imgs, t_labels = tb if labeled else (tb, None)
-            out, m_test, _ = eval_step(eval_gen, to_device(t_imgs, device))
+            out, m_test, last_images = eval_step(eval_gen, to_device(t_imgs, device))
             test_metrics.update(m_test)
             if t_labels is not None and probe_step is not None:
                 test_metrics.update(probe_step(out, to_device(t_labels, device),
                                                Noise(eval_gen)))
             if t_labels is not None and gm:
                 all_labels.append(np.asarray(t_labels))
-                all_pred.append(out.y_logits.cpu().numpy())
+                all_pred.append(out.y_logits.float().cpu().numpy())
         results = test_metrics.result()
         if all_labels:
             labels_cat = np.concatenate(all_labels)
@@ -217,6 +223,10 @@ def train_vae(config, max_steps: Optional[int] = None):
             results["classifier_cluster_acc"] = float(
                 (cluster_pred.argmax(1) == labels_cat.argmax(1)).mean())
         logger.log(step, results, prefix="test/")
+        try:
+            _vae_visualize(config, model, Noise(eval_gen), last_images, test_ds, run_dir, step)
+        except Exception as e:  # a figure never stops training, as in the JAX loop
+            print(f"[viz] skipped: {type(e).__name__}: {e}")
 
     state = _train(config, state, train_step, _train_iterator(train_ds, config, device),
                    evaluate, run_dir, max_steps, meta=meta)
@@ -242,19 +252,85 @@ def train_spair(config, max_steps: Optional[int] = None):
     eval_step = make_spair_eval_step(config, model)
     eval_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
 
-    def evaluate(step, logger):
-        """Dual test sweep: seen + unseen backgrounds (spair/trainer.py:381-401)."""
+    def evaluate(step, logger, batch):
+        """The decomposition of the last train batch (spair/trainer.py:331-378),
+        then the dual test sweep, seen + unseen backgrounds, each with its
+        PNGs of its last batch (spair/trainer.py:381-401)."""
+        try:
+            _spair_train_plot(eval_step, eval_gen, batch, run_dir, step)
+        except Exception as e:  # a figure never stops training, as in the JAX loop
+            print(f"[viz] train plot skipped: {type(e).__name__}: {e}")
         for test_num, test_ds_i in enumerate(test_sets):
             test_metrics = MeanMetrics()
             labeled = test_ds_i.labels is not None
+            viz_images = None
             for tb in iterate_batches(test_ds_i, config.batch_size, shuffle=False):
                 t_imgs, t_labels = tb if labeled else (tb, None)
-                _, m_test, _ = eval_step(
+                _, m_test, viz_images = eval_step(
                     eval_gen, to_device(t_imgs, device),
                     to_device(t_labels, device) if t_labels is not None else None)
                 test_metrics.update(m_test)
             logger.log(step, test_metrics.result(), prefix=f"test{test_num}/")
+            try:
+                _spair_visualize(model, viz_images, Noise(eval_gen), run_dir,
+                                 f"_it_{step}_{test_num}")
+            except Exception as e:
+                print(f"[viz] skipped: {type(e).__name__}: {e}")
 
     state = _train(config, state, make_spair_train_step(config),
                    _train_iterator(train_ds, config, device), evaluate, run_dir, max_steps)
     return state, run_dir
+
+
+def _vae_visualize(config, model, noise: Noise, last_images: Optional[torch.Tensor], test_ds,
+                   run_dir: str, step: int) -> None:
+    """The VAE eval's PNGs (split_vae_tpu/train/loop.py:248-277): for LGVae
+    and LGGMVae (never GMVae) the samples, the recon strips of the last test
+    batch, the two vary grids and a style transfer (SVHN's hand-picked digits
+    for svhn*, else the CelebA form when the batch holds 20 images); with
+    ``--viz`` for LGGMVae the cluster galleries and the three cluster grids."""
+    suffix = f"_it_{step}"
+    if not isinstance(model, GMVae):
+        viz.generate(model, noise, filename=f"generate_it_{step}", filepath=run_dir)
+        if last_images is not None:
+            viz.reconstruction_test_lg_vae(model, last_images, noise, filename=suffix,
+                                           filepath=run_dir)
+        for vary in ("lower", "upper"):
+            viz.generate_varying_latent(model, noise, vary, filename=f"vary_{vary}_it_{step}",
+                                        filepath=run_dir)
+        if config.dataset.lower().startswith("svhn"):
+            viz.style_transfer_test(model, test_ds.images, noise, filename=suffix,
+                                    filepath=run_dir)
+        elif last_images is not None and last_images.shape[0] >= 20:
+            viz.style_transfer_celeba(model, last_images, noise, filename=suffix,
+                                      filepath=run_dir)
+    if config.viz and isinstance(model, LGGMVae):
+        if last_images is not None:
+            viz.unseen_cluster_lg(model, [last_images], noise, filename=suffix, filepath=run_dir)
+        for vary, name in (("zg", "generate_cluster_fix_zl"), ("zg_zl", "generate_cluster"),
+                           ("y_zg", "generate_multi_cluster")):
+            viz.generate_cluster(model, noise, vary, filename=f"{name}_it_{step}",
+                                 filepath=run_dir)
+
+
+def _spair_train_plot(eval_step, generator: torch.Generator, batch: torch.Tensor, run_dir: str,
+                      step: int) -> None:
+    """The last train batch forwarded once through the eval step, and its
+    decomposition (split_vae_tpu/train/loop.py:345-352)."""
+    out, _, images = eval_step(generator, batch)
+    sviz.train_decomposition_plot(images, out, filename=str(step), filepath=run_dir)
+
+
+def _spair_visualize(model, images: torch.Tensor, noise: Noise, run_dir: str,
+                     suffix: str) -> None:
+    """A SPAIR test set's PNGs of its last batch (split_vae_tpu/train/loop.py:371-387):
+    the decomposition, the boxes, the glimpses, then LG-SPAIR's local recon
+    or LGGlimpseSPAIR's scrambled glimpses."""
+    for writer in (sviz.reconstruction_test, sviz.reconstruction_bbox,
+                   sviz.glimpses_reconstruction_test):
+        writer(model, images, noise, filename=suffix, filepath=run_dir)
+    if isinstance(model, LGSPAIR):
+        sviz.x_hat_reconstruction_test(model, images, noise, filename=suffix, filepath=run_dir)
+    if isinstance(model, LGGlimpseSPAIR):
+        sviz.glimpses_local_reconstruction_test(model, images, noise, filename=suffix,
+                                                filepath=run_dir)

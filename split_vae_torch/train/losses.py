@@ -26,6 +26,14 @@ from split_vae_torch.ops.distributions import (
 from split_vae_torch.train import schedules
 
 
+def _upcast(out):
+    """The model's outputs with every bfloat16 tensor in float32
+    (split_vae_tpu/train/losses.py:36-45): logs, KLs and sums over thousands
+    of pixels need float32's mantissa. Nothing changes in float32."""
+    return type(out)(*(t.float() if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+                       else t for t in out))
+
+
 def _recon_nll(x: torch.Tensor, mean: torch.Tensor, log_scale: torch.Tensor) -> torch.Tensor:
     """Batch mean of the pixel-summed discretized-logistic NLL (vae/trainer.py:127-128)."""
     return torch.mean(torch.sum(discretized_logistic_nll(x, mean, log_scale), dim=(1, 2, 3)))
@@ -34,6 +42,7 @@ def _recon_nll(x: torch.Tensor, mean: torch.Tensor, log_scale: torch.Tensor) -> 
 def lgvae_loss(out: LGVaeOutput, images: torch.Tensor,
                beta: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """total = x_recon + x_hat_recon + beta * KL(concat z) (vae/trainer.py:120-144)."""
+    out = _upcast(out)
     x, x_hat = images[..., :3], images[..., 3:]
     x_recon_loss = _recon_nll(x, out.x_mean, out.x_log_scale)
     x_hat_recon_loss = _recon_nll(x_hat, out.x_hat_mean, out.x_hat_log_scale)
@@ -54,6 +63,7 @@ def lggmvae_loss(out: LGGMVaeOutput, images: torch.Tensor, beta: float, alpha: f
                  y_size: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x and x_hat recons + beta * (KL(z_g || the y prior) + KL(z_l || N(0, 1)))
     + alpha * KL(y || uniform) (vae/trainer.py:146-173)."""
+    out = _upcast(out)
     x, x_hat = images[..., :3], images[..., 3:]
     x_recon_loss = _recon_nll(x, out.x_mean, out.x_log_scale)
     x_hat_recon_loss = _recon_nll(x_hat, out.x_hat_mean, out.x_hat_log_scale)
@@ -79,6 +89,7 @@ def gmvae_loss(out: GMVaeOutput, images: torch.Tensor, beta: float, alpha: float
                y_size: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x recon + beta * KL(z || the y prior) + alpha * KL(y || uniform)
     (vae/trainer.py:175-195)."""
+    out = _upcast(out)
     x = images[..., :3]
     x_recon_loss = _recon_nll(x, out.x_mean, out.x_log_scale)
     x_kl = gaussian_kl_two(out.z_mean_x, out.z_sig_x, out.z_prior_mean, out.z_prior_sig)
@@ -103,6 +114,7 @@ def spair_loss(out: SpairOutput, images: torch.Tensor, config, step,
     """SPAIR-family total loss with its anneals; for test steps the anneals are
     pinned (prior_z_pres_prob = 0.99, prior_z_zoom_mean = config.prior_z_zoom,
     beta_t = config.beta)."""
+    out = _upcast(out)
     if config.model == "lg_spair":
         c = images.shape[-1] // 2
         x, x_hat = images[..., :c], images[..., c:]

@@ -35,7 +35,7 @@ from split_vae_torch.core.state import create_train_state
 from split_vae_torch.data.loader import ArrayDataset, iterate_batches, to_device
 from split_vae_torch.data.svhn import get_svhn
 from split_vae_torch.nn.classifier import Classifier
-from split_vae_torch.nn.common import init_params
+from split_vae_torch.nn.common import activation_dtype, init_params
 from split_vae_torch.train.optim import classifier_optimizer
 from split_vae_torch.train.steps import normalize_images
 
@@ -99,6 +99,12 @@ def classifier_weights_path(config) -> str:
     return os.path.join("models", name)
 
 
+def _dtype(config):
+    """The classifier computes in the run's dtype, as the JAX package's
+    process-wide activation dtype makes it."""
+    return activation_dtype(getattr(config, "compute_dtype", "float32"))
+
+
 def _port_weights_path(config) -> str:
     return os.path.splitext(classifier_weights_path(config))[0] + ".pt"
 
@@ -124,7 +130,7 @@ def train_classifier(config, epochs: Optional[int] = None, verbose: bool = True,
     train_ds = ArrayDataset(np.concatenate([train_ds.images, test_ds.images]),
                             np.concatenate([train_ds.labels, test_ds.labels]))
 
-    model = Classifier(device=device)
+    model = Classifier(device=device, dtype=_dtype(config))
     init_params(model, torch.Generator(device=device).manual_seed(config.seed))
     state = create_train_state(model, classifier_optimizer(), seed=config.seed + 17)
 
@@ -154,7 +160,7 @@ def load_or_train_classifier(config, device="cuda", verbose: bool = True) -> Cla
     trained classifier (vae/trainer.py:81-89)."""
     for path in (classifier_weights_path(config), _port_weights_path(config)):
         if os.path.exists(path):
-            return ckpt.load_weights(path, Classifier(device=device))
+            return ckpt.load_weights(path, Classifier(device=device, dtype=_dtype(config)))
     if verbose:
         print("Classifier model not found, training a new classifier")
     return train_classifier(config, verbose=verbose, device=device)

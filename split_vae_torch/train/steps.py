@@ -7,9 +7,18 @@ updates. A VAE-family train step (LGVae, LGGMVae, GMVae): uint8 batch ->
 [-1, 1] floats -> the augmentation on the device -> forward -> the model's
 loss -> backward -> Adam, skip of non-finite updates. GMVae too gets the
 augmented 6-channel input and reads its first 3 channels, so the
-augmentation's draws are spent as in the JAX step. fp32 only: the steps turn
-TF32 off for matmuls and cuDNN convolutions, which would otherwise break
-parity with the f32 reference.
+augmentation's draws are spent as in the JAX step.
+
+``config.compute_dtype``: 'float32', or 'bfloat16', where every Dense and
+Conv of the model computes in bfloat16 (``nn/common.py``) while the
+parameters, their gradients and the optimizer's state stay float32; a step
+refuses a model built in the other dtype. The steps turn TF32 off for
+matmuls and cuDNN convolutions in both modes, which would otherwise break
+parity with the float32 reference. Where the JAX step pins single-pass
+bfloat16 for the float32 dots left inside it (``matmul_precision``,
+split_vae_tpu/train/steps.py:70-79), the port sets nothing: no float32
+matmul or convolution is left in its bfloat16 train steps (the crop and the
+render are its own kernels, the geometry and the losses elementwise).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch
 
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.core.state import TrainState
+from split_vae_torch.nn.common import activation_dtype
 from split_vae_torch.ops.patches import augment_batch, augment_draws
 from split_vae_torch.train import losses
 from split_vae_torch.train.optim import notfinite_count
@@ -52,9 +62,16 @@ def augment(config, x: torch.Tensor, noise: Noise) -> torch.Tensor:
     return augment_batch(x, kind, size, u=augment_draws(kind, x.shape, size, noise))
 
 
-def _require_fp32(config) -> None:
-    if getattr(config, "compute_dtype", "float32") != "float32":
-        raise NotImplementedError("only compute_dtype='float32' is ported yet")
+def check_compute_dtype(config, model) -> None:
+    """Raises when ``model`` was built in another compute dtype than
+    config.compute_dtype asks for (the intent of the JAX package's
+    ``_check_activation_dtype``, split_vae_tpu/train/steps.py:52-67)."""
+    want = activation_dtype(config.compute_dtype)
+    have = getattr(model, "compute_dtype", None)
+    if have != want:
+        raise ValueError(f"compute dtype mismatch: config.compute_dtype is "
+                         f"{config.compute_dtype!r} but the model was built with "
+                         f"{have or 'float32'}; build it from the same config")
 
 
 def _apply(state: TrainState, total: torch.Tensor, metrics) -> Dict[str, torch.Tensor]:
@@ -92,12 +109,12 @@ def make_vae_train_step(config) -> Callable:
     docstrings). ``replay`` (tests only) lists them in that order; otherwise
     they come from ``state.generator``.
     """
-    _require_fp32(config)
     loss_of = vae_loss_fn(config)
     use_fp32()
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
+        check_compute_dtype(config, state.model)
         noise = Noise(state.generator, replay)
         images = augment(config, normalize_images(batch, "tanh"), noise)
         total, metrics = loss_of(state.model(images, True, noise), images)
@@ -111,6 +128,7 @@ def make_vae_eval_step(config, model) -> Callable:
     under ``torch.no_grad``: training=False (no dropout), the sampling noise
     stays on, as in the reference's test steps (vae/trainer.py:199-292)."""
     loss_of = vae_loss_fn(config)
+    check_compute_dtype(config, model)
     use_fp32()
 
     def eval_step(generator: torch.Generator, batch: torch.Tensor,
@@ -135,11 +153,11 @@ def make_spair_train_step(config, windowed_render: bool = False) -> Callable:
     scramble's uniforms, then the model's draws; otherwise everything is drawn
     from ``state.generator``. Metrics are 0-d tensors on the device.
     """
-    _require_fp32(config)
     use_fp32()
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
+        check_compute_dtype(config, state.model)
         noise = Noise(state.generator, replay)
         images = model_inputs(config, normalize_images(batch, "unit"), noise)
         out = state.model(images, True, noise, windowed=windowed_render)
@@ -159,6 +177,7 @@ def make_spair_eval_step(config, model) -> Callable:
     the eval's consumers read exist; the loss runs with training=False at
     step 0. ``replay`` (tests only) lists the noise in draw order.
     """
+    check_compute_dtype(config, model)
     use_fp32()
 
     def eval_step(generator: torch.Generator, batch: torch.Tensor,

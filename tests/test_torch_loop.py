@@ -6,6 +6,7 @@ the keys of the port's train or eval step (which the step tests hold to the
 JAX package's) plus ``imgs_per_sec`` under ``train/``; the checkpoints, the
 final weights at models/<run>.pt and the resume, which continues from the
 checkpoint's step. What is not ported yet raises, naming its ROADMAP item.
+The PNG artifacts of each eval are held in ``tests/test_torch_viz.py``.
 
 The test sweeps of the SPAIR run read 16 images a split (the synthetic
 default is 256), to keep the CPU run short.
@@ -133,7 +134,7 @@ def test_train_vae_schedule_checkpoints_and_resume(capsys, host_data):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--compute_dtype", "bfloat16", "-no_label"], "A7"),
+    (["--num_model_shards", "2", "-no_label"], "A8"),
     (["--num_data_shards", "2", "-no_label"], "A8"),
     (["--num_processes", "2", "-no_label"], "A8"),
 ])

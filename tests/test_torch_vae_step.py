@@ -201,5 +201,13 @@ def test_eval_outputs_match(both_steps, field):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="float32"):
-        torch_step(PortConfig(compute_dtype="bfloat16"))
+    """bfloat16 is ported: the step is made, and refuses a model built in the
+    other compute dtype (the intent of the JAX package's
+    ``_check_activation_dtype``); an unknown dtype raises when the model is built."""
+    cfg = PortConfig(global_latent_dims=4, local_latent_dims=4, patch_size=4)
+    state = torch_state(torch_model(cfg, (16, 16), device="cpu"), vae_optimizer(1e-4))
+    batch = torch.zeros((2, 16, 16, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="compute dtype mismatch"):
+        torch_step(cfg.replace(compute_dtype="bfloat16"))(state, batch)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        torch_model(cfg.replace(compute_dtype="float16"), (16, 16), device="cpu")
