@@ -37,7 +37,15 @@ row-windowed, and the STN glimpse crop), and the VAE-family train steps
       parameters float32): the same seed and batches, the render and crop
       pairs on float32 inputs once a step;
   P11 P5 in bfloat16;
-  P12 config #2 in bfloat16 through vae_main: 20 steps, one eval.
+  P12 config #2 in bfloat16 through vae_main: 20 steps, one eval;
+  P13 data parallelism: P1's configuration, seed and batches (config #5,
+      global B=256) in 2 processes on the one card, 128 rows each, over gloo
+      (NCCL refuses two ranks on one GPU): 3 train steps through the render
+      and crop kernels, held against the same 3 steps in one process;
+  P14 vae_main at config #2's flags through --coordinator, --num_processes
+      and --process_id on NCCL: 2 processes on 2 cards where there are two,
+      else a 1-process NCCL group on the one card, whose step does no
+      collective, and then the flat all-reduce on the card.
 
 P6, P7, P9 and P12 also check the PNG artifacts of every eval: the names the
 JAX loop writes for the model and flags, each file decoded by
@@ -100,7 +108,21 @@ Phases, each of which must pass:
      timed rate; P8 as P5, with every launch count 0; P9's checks above;
      P10 and P11 as P1 and P5, their first losses within rtol 0.02 of P1's
      and P5's, the parameters and the optimizer's state float32 after the
-     steps (held on every path); P12 as P7 without the resume;
+     steps (held on every path); P12 as P7 without the resume; P13: each
+     process's draw from a CUDA generator of one seed bit-equal to this
+     process's, the ranks' mean loss against the 1-process loss (rtol 1e-5
+     at the first step, 1e-4 after), the first step's reduced gradients
+     against the mean of the two halves' gradients computed in this process
+     (each tensor within 1e-5 of its L2 norm; the 1-process gradient's gap
+     logged beside it), the parameters after the first step within 1e-5 of
+     the two halves' step computed in this process where |g| >= 1e-5
+     (Adam's rule; the 1-process run's gap logged), after the 3 steps
+     bit-equal across the ranks and within 2 lr a step of both references,
+     each rank's launches (the
+     render pair and the crop pair once a step), its step time, the
+     all-reduce's device time (CUDA events) and its share of the step, and
+     its peak device memory; P14: the records at step 20, the backend, and
+     the all-reduce's time (in the step with 2 cards, else the explicit one);
   6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -676,35 +698,35 @@ def profile_steps(torch, train_step, state, batch, steps: int = 3):
 
 
 class RecordingNoise:
-    """Draws like core.noise.Noise and keeps each draw, for a replay."""
+    """Draws like core.noise.Noise (one rank) and keeps each draw, for a replay."""
 
     def __init__(self, noise):
         self.noise, self.drawn = noise, []
 
-    def normal(self, shape, dtype=None):
+    def normal(self, shape, dtype=None, per_example=None):
         self.drawn.append(self.noise.normal(shape, dtype))
         return self.drawn[-1]
 
-    def uniform(self, shape, dtype=None):
+    def uniform(self, shape, dtype=None, per_example=None):
         self.drawn.append(self.noise.uniform(shape, dtype))
         return self.drawn[-1]
 
-    def normal_like(self, t):
+    def normal_like(self, t, per_example=None):
         return self.normal(t.shape, t.dtype)
 
-    def uniform_like(self, t):
+    def uniform_like(self, t, per_example=None):
         return self.uniform(t.shape, t.dtype)
 
     def permutation(self, n):
         self.drawn.append(self.noise.permutation(n))
         return self.drawn[-1]
 
-    def keep(self, shape, rate):
+    def keep(self, shape, rate, per_example=None):
         self.drawn.append(self.noise.keep(shape, rate))
         return self.drawn[-1]
 
-    def seed(self):
-        return self.noise.seed()
+    def image_seed(self, batch):
+        return self.noise.image_seed(batch)
 
 
 def hold_small_step(torch, label, what, names, grads, results):
@@ -1438,6 +1460,439 @@ def check_probe_records(name, records, probe_keys, min_classifier_acc=0.9):
         + "; " + ", ".join(f"{k} {tests[-1]['test/' + k]:.4f}" for k in probe_keys))
 
 
+# ---------------------------------------------------------------- P13, P14
+
+P13_STEPS = 3
+P13_DRAW = 4096  # normals each process draws from a CUDA generator of one seed
+P13_DRAW_SEED = 1234
+RANKS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(fn_name: str, world: int, args: tuple, timeout: float):
+    """Runs ``chip_smoke.<fn_name>(rank, world, port, *args)`` in ``world``
+    processes of their own, on a free local port; fails on a non-zero exit or
+    a time-out, and kills every process it started. Logs each process's
+    output."""
+    port = free_port()
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+            f"chip_smoke.{fn_name}({{}}, {world}, {port}, *{args!r})")
+    env = dict(os.environ)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(r)], cwd=HERE, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{fn_name}: a process ran past {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-40:]:
+            log(f"  [{fn_name} rank {r}] {line}")
+        if p.returncode != 0:
+            fail(f"{fn_name}: rank {r} exited {p.returncode}")
+
+
+def timed_reduce(torch, spans):
+    """Puts CUDA events around every call of the train steps' all-reduce
+    (``train/steps.py::all_reduce_mean_``); the (start, end) pairs go to
+    ``spans``. Returns a function that undoes it."""
+    from split_vae_torch.train import steps as steps_mod
+
+    original = steps_mod.all_reduce_mean_
+
+    def timed(tensors, mesh):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        original(tensors, mesh)
+        end.record()
+        spans.append((start, end))
+
+    steps_mod.all_reduce_mean_ = timed
+    return lambda: setattr(steps_mod, "all_reduce_mean_", original)
+
+
+def p13_batches(torch, np, cfg, device):
+    """P1's two batches (``run_path``'s), on ``device``."""
+    rng = np.random.RandomState(0)
+    return [torch.from_numpy(rng.uniform(0, 1, (cfg.batch_size,) + tuple(cfg.image_size))
+                             .astype(np.float32)).to(device) for _ in range(2)]
+
+
+def p13_steps(torch, np, mesh, render, crop, windowed):
+    """P1's configuration, seed and two batches (config #5, global B=256)
+    through P13_STEPS train steps on this rank's rows, every rank starting
+    from rank 0's state. Returns the losses (this rank's), the parameters
+    after the first step and after all, the first step's gradients as the
+    optimizer saw them, the kernels' launches in the steps, the mean host
+    time of the steps after the first, the all-reduce's device ms a step,
+    and the peak device memory."""
+    from split_vae_torch.core.config import config5
+    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.models.spair import get_spair_model
+    from split_vae_torch.parallel.mesh import broadcast_state_, rows
+    from split_vae_torch.train import steps as steps_mod
+    from split_vae_torch.train.optim import GradientTransformation, spair_optimizer
+
+    cfg = config5()
+    tx = spair_optimizer(cfg.learning_rate)
+    seen = {}
+
+    def update(grads, state):
+        if "first" not in seen:
+            seen["first"] = [g.detach().cpu() for g in grads]
+        return tx.update(grads, state)
+
+    model = get_spair_model(cfg, device=mesh.device)
+    state = create_train_state(model, GradientTransformation(tx.init, update), seed=cfg.seed)
+    broadcast_state_(state, mesh)
+    mine = rows(mesh, cfg.batch_size)
+    batches = [b[mine] for b in p13_batches(torch, np, cfg, mesh.device)]
+    train_step = steps_mod.make_spair_train_step(cfg, mesh=mesh)
+    spans = []
+    undo = timed_reduce(torch, spans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(render, crop, windowed)
+    losses, times = [], []
+    try:
+        for i in range(P13_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batches[i % 2])
+            losses.append(metrics["total_loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                after_first = [p.detach().cpu() for p in model.parameters()]
+    finally:
+        undo()
+    launches = read_launches(render, crop, windowed)
+    reduce_ms = [a.elapsed_time(b) for a, b in spans]
+    return {"losses": [v.item() for v in losses],
+            "notfinite": int(metrics["notfinite_updates"].item()),
+            "params": [p.detach().cpu() for p in model.parameters()], "params1": after_first,
+            "first_grads": seen["first"],
+            "launches": launches, "step_s": statistics.mean(times[1:]),
+            "reduce_ms": statistics.mean(reduce_ms[1:]) if reduce_ms else 0.0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "names": [n for n, _ in model.named_parameters()]}
+
+
+def p13_emulated(torch, np, device):
+    """The 2-rank P13 steps computed in this process, without the transport:
+    each step, each half of the batch with that rank's rows of the draws
+    (the generator rewound to the step's start for the second half) and its
+    render seed, the two halves' gradients summed and halved, as the ranks'
+    all-reduce does, then one update. Returns the first step's gradients
+    and the parameters after the first step and after all."""
+    from split_vae_torch.core.config import config5
+    from split_vae_torch.core.noise import Noise
+    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.models.spair import get_spair_model
+    from split_vae_torch.parallel.mesh import Mesh, rows
+    from split_vae_torch.train.losses import spair_loss
+    from split_vae_torch.train.optim import spair_optimizer
+    from split_vae_torch.train.steps import model_inputs, normalize_images
+
+    cfg = config5()
+    model = get_spair_model(cfg, device=device)
+    state = create_train_state(model, spair_optimizer(cfg.learning_rate), seed=cfg.seed)
+    batches = p13_batches(torch, np, cfg, device)
+    params = state.params
+    first = after_first = None
+    for i in range(P13_STEPS):
+        start = state.generator.get_state()
+        sums = [torch.zeros_like(p) for p in params]
+        for r in range(RANKS):
+            state.generator.set_state(start)
+            noise = Noise(state.generator, rank=r, world=RANKS)
+            half = batches[i % 2][rows(Mesh(rank=r, world=RANKS), cfg.batch_size)]
+            images = model_inputs(cfg, normalize_images(half, "unit"), noise)
+            total, _ = spair_loss(model(images, True, noise), images, cfg, state.step,
+                                  training=True)
+            for acc, g in zip(sums, torch.autograd.grad(total, params, allow_unused=True)):
+                if g is not None:
+                    acc.add_(g)
+        grads = [g / RANKS for g in sums]
+        state.apply_gradients(grads)
+        if first is None:
+            first = [g.cpu() for g in grads]
+            after_first = [p.detach().cpu() for p in params]
+    return first, after_first, [p.detach().cpu() for p in params]
+
+
+def p13_rank(rank, world, port, out):
+    """A P13 process: a gloo group of ``world`` processes on the one card
+    (NCCL refuses two ranks on one GPU), a draw from a CUDA generator of a
+    fixed seed, then ``p13_steps``; saves the results for the parent."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from split_vae_torch.kernels import crop, render
+    from split_vae_torch.kernels import render_windowed as windowed
+    from split_vae_torch.parallel import mesh as mesh_mod
+    from split_vae_torch.train.steps import use_fp32
+
+    torch.cuda.set_device(0)
+    use_fp32()
+    mesh_mod.maybe_initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    mesh = mesh_mod.create_mesh(device=torch.device("cuda", 0))
+    draw = torch.randn(P13_DRAW, generator=torch.Generator("cuda").manual_seed(P13_DRAW_SEED),
+                       device="cuda").cpu()
+    result = p13_steps(torch, np, mesh, render, crop, windowed)
+    result.update(draw=draw, backend=mesh.backend, world=mesh.world)
+    if rank != 0:
+        del result["first_grads"]
+    torch.save(result, os.path.join(out, f"p13_rank{rank}.pt"))
+    print(f"rank {rank} of {mesh.world} ({mesh.backend}): losses {result['losses']}", flush=True)
+    dist.destroy_process_group()
+
+
+def norm_gap(a, b) -> float:
+    """|a - b| / |b| in the L2 norm."""
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def run_p13(torch, np, render, crop, windowed):
+    """P13: LG-SPAIR at config #5, full width, in 2 processes on the one card
+    (gloo), 128 rows each of the global batch of 256, against the same steps
+    in one process, and against the two halves' steps computed here (what
+    the 2 ranks compute, without
+    the transport, ``p13_emulated``). Logs every comparison, then fails on
+    any that missed.
+    Returns the two ranks' launches summed."""
+    import tempfile
+
+    from split_vae_torch.parallel.mesh import Mesh
+
+    cuda0 = torch.device("cuda", 0)
+    one = p13_steps(torch, np, Mesh(device=cuda0), render, crop, windowed)
+    split, split_params1, split_params = p13_emulated(torch, np, cuda0)
+    draw = torch.randn(P13_DRAW, generator=torch.Generator("cuda").manual_seed(P13_DRAW_SEED),
+                       device="cuda").cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as out:
+        t0 = time.perf_counter()
+        spawn_ranks("p13_rank", RANKS, (out,), timeout=600)
+        spawned_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"p13_rank{r}.pt"), weights_only=False)
+                 for r in range(RANKS)]
+    missed = []
+    for r, res in enumerate(ranks):
+        if not torch.equal(res["draw"], draw):
+            missed.append(f"rank {r}'s draw from a CUDA generator seeded {P13_DRAW_SEED} is not "
+                          f"this process's")
+        if res["notfinite"] or not np.isfinite(res["losses"]).all():
+            missed.append(f"rank {r}: losses {res['losses']}, {res['notfinite']} skipped updates")
+        for kernel, n in res["launches"].items():
+            if n != (0 if kernel.startswith("render_windowed") else P13_STEPS):
+                missed.append(f"rank {r} launched {kernel} {n} times in {P13_STEPS} steps")
+    names = one["names"]
+    unequal = [name for name, a, b in zip(names, ranks[0]["params"], ranks[1]["params"])
+               if not torch.equal(a, b)]
+    if unequal:
+        missed.append(f"the ranks' parameters differ after the steps: {unequal[:5]}")
+    losses = [sum(res["losses"][i] for res in ranks) / RANKS for i in range(P13_STEPS)]
+    for i, (got, want) in enumerate(zip(losses, one["losses"])):
+        rtol = 1e-5 if i == 0 else 1e-4
+        if not abs(got - want) <= rtol * abs(want):
+            missed.append(f"step {i + 1}'s loss, the ranks' mean {got}, is not the 1-process "
+                          f"{want} (rtol {rtol})")
+    # The first step's gradients, tensor by tensor in the L2 norm: against
+    # the ranks' function computed here (the same rows, draws and render
+    # seeds, summed and halved), and, as what float32 makes of a sum over
+    # 4096 cells split in two, the 1-process gradient beside it.
+    gap_split = {n: norm_gap(g, s) for n, g, s in zip(names, ranks[0]["first_grads"], split)}
+    gap_one = {n: norm_gap(g, o) for n, g, o in zip(names, ranks[0]["first_grads"],
+                                                    one["first_grads"])}
+    floor = {n: norm_gap(s, o) for n, s, o in zip(names, split, one["first_grads"])}
+    worst = max(gap_split, key=gap_split.get)
+    if not gap_split[worst] <= 1e-5:
+        missed.append(f"the first step's reduced gradient of {worst} is {gap_split[worst]:.3g} "
+                      f"of its norm from the halves' mean (> 1e-5)")
+    # The parameters. After the first step, Adam's rule (atol 1e-5 where
+    # |g| >= 1e-5; below, -lr g / (|g| + 1e-7) turns a summation-order
+    # difference into an update difference of up to 2 lr, and only the
+    # gradient is held, above) against the ranks' function computed here,
+    # and beside it the 1-process run. After all the steps, within 2 lr a
+    # step of both: an update flipped by the first step moves the later
+    # steps' gradients, and the card's convolutions sum in another order
+    # from run to run, so even the same function drifts by that much.
+    def adam_gap(params, ref_params, ref_grads):
+        worst, at = 0.0, None
+        for name, pn, pr, g in zip(names, params, ref_params, ref_grads):
+            d = torch.where(g.abs() >= 1e-5, (pn - pr).abs(), torch.zeros_like(pr)).max().item()
+            if d > worst:
+                worst, at = d, name
+        return worst, at
+
+    adam_split, adam_split_at = adam_gap(ranks[0]["params1"], split_params1, split)
+    adam_one, adam_one_at = adam_gap(ranks[0]["params1"], one["params1"], one["first_grads"])
+    if not adam_split <= 1e-5:
+        missed.append(f"{adam_split_at} after the first step differs by {adam_split:.3g} > 1e-5 "
+                      f"from the ranks' function computed in one process, where |g| >= 1e-5")
+    lr_bound = 2 * 1e-4 * P13_STEPS
+    drift = {k: max((pn - pr).abs().max().item() for pn, pr in zip(ranks[0]["params"], ref))
+             for k, ref in (("split", split_params), ("one", one["params"]))}
+    for k, label in (("split", "the ranks' function computed in one process"),
+                     ("one", "the 1-process run")):
+        if not drift[k] <= lr_bound:
+            missed.append(f"a parameter after {P13_STEPS} steps differs by {drift[k]:.3g} > "
+                          f"{lr_bound:.3g} (2 lr a step) from {label}")
+    top = sorted(floor, key=floor.get, reverse=True)[:3]
+    log(f"P13 (LG-SPAIR config #5, global B=256, {RANKS} processes on one card, 128 rows each, "
+        f"render noise 0.01): losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + " (the ranks' mean) against " + ", ".join(f"{v:.4f}" for v in one["losses"])
+        + f" in one process; the ranks' parameters "
+        + ("bit-equal" if not unequal else f"unequal in {len(unequal)} tensors")
+        + f"; after the first step within {adam_split:.3g} ({adam_split_at}) of the ranks' "
+        f"function computed in one process where |g| >= 1e-5, {adam_one:.3g} ({adam_one_at}) of "
+        f"the 1-process run; after {P13_STEPS} steps within {drift['split']:.3g} and "
+        f"{drift['one']:.3g} of the two on every element")
+    log(f"P13 first step's reduced gradients, L2 gap of a tensor's norm: to the halves' mean "
+        f"at most {gap_split[worst]:.3g} ({worst}); to the 1-process gradient at most "
+        f"{max(gap_one.values()):.3g}; the halves' mean to the 1-process gradient (float32's "
+        f"split of the sum, no transport): " + ", ".join(f"{n} {floor[n]:.3g}" for n in top))
+    for r, res in enumerate(ranks):
+        log(f"P13 rank {r}: backend {res['backend']}; launches in {P13_STEPS} steps "
+            f"{res['launches']}")
+        log(f"P13 rank {r}: step {res['step_s'] * 1e3:.3f} ms (mean of steps 2-{P13_STEPS}, host "
+            f"clock, synchronized); all-reduce {res['reduce_ms']:.3f} ms a step (CUDA events), "
+            f"{res['reduce_ms'] / (res['step_s'] * 1e3):.1%} of the step; peak device memory "
+            f"{res['peak_gib']:.3f} GiB")
+    log(f"P13 one process (the reference): step {one['step_s'] * 1e3:.3f} ms, peak device memory "
+        f"{one['peak_gib']:.3f} GiB; the {RANKS} processes took {spawned_s:.1f} s from start to "
+        f"exit (gloo on one card is a correctness path, not a scaling number)")
+    if missed:
+        fail("P13: " + "; ".join(missed))
+    return {k: sum(res["launches"][k] for res in ranks) for k in KERNELS}
+
+
+P14_STEPS = 20
+
+
+def p14_rank(rank, world, port, tmp, out):
+    """A P14 process: vae_main at config #2's flags through --coordinator,
+    --num_processes and --process_id on NCCL, P14_STEPS steps with one eval
+    and one checkpoint; with one process (a 1-process NCCL group, where the
+    step does no collective), the flat all-reduce on the card afterwards, on
+    tensors of the model's parameter shapes. Saves the results."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from split_vae_torch.cli import vae_main
+    from split_vae_torch.core.config import CONFIG2_IMAGE_HW, config2
+    from split_vae_torch.kernels import crop, render
+    from split_vae_torch.kernels import render_windowed as windowed
+    from split_vae_torch.parallel.mesh import flat_all_reduce_mean_
+    from split_vae_torch.train.loop import build_vae_model
+
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    os.chdir(tmp)
+    spans = []
+    undo = timed_reduce(torch, spans)
+    reset_launches(render, crop, windowed)
+    try:
+        vae_main.main(CONFIG2_ARGV + [
+            "-synthetic_data", "--training_steps", str(P14_STEPS), "--eval_interval",
+            str(P14_STEPS), "--checkpoint_interval", str(P14_STEPS), "--log_every", "10",
+            "--data_dir", tmp, "--output_dir", os.path.join(tmp, "output"),
+            "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(world),
+            "--process_id", str(rank)])
+    finally:
+        undo()
+    launches = read_launches(render, crop, windowed)
+    reduce_ms = [s.elapsed_time(e) for s, e in spans]
+    explicit = None
+    if world == 1:
+        model, _ = build_vae_model(config2(), CONFIG2_IMAGE_HW, device=device)
+        tensors = [p.detach().clone() for p in model.parameters()]
+        want = [t.clone() for t in tensors]
+        times = []
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            flat_all_reduce_mean_(tensors, 1)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        explicit = {"equal": all(torch.equal(a, b) for a, b in zip(tensors, want)),
+                    "ms": statistics.median(times[1:]), "first_ms": times[0],
+                    "mb": sum(t.numel() for t in tensors) * 4 / 1e6}
+    result = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+              "launches": launches, "reduce_ms": reduce_ms, "explicit": explicit,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "device": torch.cuda.get_device_name(device)}
+    torch.save(result, os.path.join(out, f"p14_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_p14(torch, np):
+    """P14: vae_main at config #2 on NCCL: 2 processes on 2 cards where the
+    machine has them, else a 1-process NCCL group on the one card with the
+    flat all-reduce run on it; logs which of the two ran. Returns the
+    launches (all 0: no SPAIR kernel lies on the VAE path)."""
+    import tempfile
+
+    world = 2 if torch.cuda.device_count() >= 2 else 1
+    which = (f"{world} processes over NCCL on {world} cards" if world > 1 else
+             "one process in a 1-process NCCL group on the one card, then the flat all-reduce")
+    log(f"P14 (vae_main, config #2, {P14_STEPS} steps): {which}")
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks("p14_rank", world, (tmp, tmp), timeout=600)
+        spawned_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"p14_rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        (run,) = os.listdir(os.path.join(tmp, "output"))
+        records = check_cli_run(np, "P14", tmp, run, [P14_STEPS], ("train/", "test/"))
+    for r, res in enumerate(ranks):
+        if res["backend"] != "nccl" or res["world"] != world:
+            fail(f"P14: rank {r} ran {res['backend']} in a world of {res['world']}")
+        if any(res["launches"].values()):
+            fail(f"P14: a SPAIR kernel was launched on the VAE path: {res['launches']}")
+        steps = P14_STEPS + 1
+        if world > 1 and len(res["reduce_ms"]) != steps:
+            fail(f"P14: rank {r} reduced {len(res['reduce_ms'])} times in {steps} steps")
+        reduce = (f"all-reduce in the step {statistics.median(res['reduce_ms']):.3f} ms "
+                  f"(median of {steps}, CUDA events)" if world > 1 else
+                  "no collective in the step (a 1-rank mesh)")
+        log(f"P14 rank {r} on {res['device']}: {res['backend']}, {reduce}; peak device memory "
+            f"{res['peak_gib']:.3f} GiB")
+    explicit = ranks[0]["explicit"]
+    if explicit is not None:
+        if not explicit["equal"]:
+            fail("P14: the flat all-reduce over a 1-process NCCL group changed the tensors")
+        log(f"P14: flat all-reduce of config #2's {explicit['mb']:.2f} MB of parameters over "
+            f"NCCL on the card: {explicit['ms']:.3f} ms (median of 5 after a first call of "
+            f"{explicit['first_ms']:.3f} ms, which sets up the communicator)")
+    (train,) = [r for r in records if "train/total_loss" in r]
+    log(f"P14: train/total_loss {train['train/total_loss']:.4f} at step {P14_STEPS}, "
+        f"train/imgs_per_sec {train['train/imgs_per_sec']:.1f}; the processes took "
+        f"{spawned_s:.1f} s from start to exit")
+    return {k: sum(res["launches"][k] for res in ranks) for k in KERNELS}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     parser.add_argument("--parent", default=None,
@@ -1711,6 +2166,10 @@ def main() -> None:
     check_probe_records("P9 gmvae", records, ())
     launches["P9"] = {k: launches["P9"][k] + p9[k] + p9_gm[k] for k in KERNELS}
     torch.cuda.empty_cache()
+    # Data parallelism: config #5 in 2 processes on the card, config #2 on NCCL.
+    launches["P13"] = run_p13(torch, np, render, crop, windowed)
+    torch.cuda.empty_cache()
+    launches["P14"] = run_p14(torch, np)
 
     # Phase 6: the record.
     pallas, research = "split_vae_tpu/ops/pallas/", "tools/pallas_research/"

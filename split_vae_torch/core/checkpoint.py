@@ -17,25 +17,17 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from split_vae_torch.core.state import TrainState
+from split_vae_torch.core.state import tree_tensors as _leaves
 from split_vae_torch.interop.flax_msgpack import load as load_msgpack
 from split_vae_torch.interop.flax_params import load_flax_params
 
 _CKPT_RE = re.compile(r"checkpoint_(\d+)\.pt$")
-
-
-def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of an optimizer state (NamedTuples, tuples, lists), in order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for sub in tree for leaf in _leaves(sub)]
-    return []
 
 
 def _cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:

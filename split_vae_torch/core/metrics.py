@@ -5,7 +5,10 @@ The reference's tf.keras.metrics.Mean / Accuracy pools (vae/trainer.py:99-118,
 spair/trainer.py:123-132). ``MeanMetrics.update`` keeps the step's 0-d
 tensors where they are and never waits for the device; ``result`` drains them
 with one stack a key and one device-to-host copy, so an interval of a
-thousand steps costs one sync.
+thousand steps costs one sync. Under data parallelism (``mesh``) ``result``
+also takes the ranks' mean of the means, one all-reduce an interval: every
+rank's steps hold equal shares of the global batch, so rank 0's ``train/``
+records are the global batch's, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,11 +18,16 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from split_vae_torch.parallel.mesh import Mesh, all_reduce_mean_values
+
 
 class MeanMetrics:
-    """Running mean per key; takes 0-d tensors (on any one device) or host numbers."""
+    """Running mean per key; takes 0-d tensors (on any one device) or host numbers.
+    With a ``mesh`` of more than one rank, ``result`` is a collective: every
+    rank calls it at the same point, with the same keys."""
 
-    def __init__(self):
+    def __init__(self, mesh: Mesh = Mesh()):
+        self.mesh = mesh
         self._sums: Dict[str, float] = {}
         self._counts: Dict[str, int] = {}
         self._pending: List[Dict] = []
@@ -57,7 +65,9 @@ class MeanMetrics:
 
     def result(self) -> Dict[str, float]:
         self._drain()
-        return {k: self._sums[k] / max(self._counts[k], 1) for k in self._sums}
+        keys = list(self._sums)
+        means = [self._sums[k] / max(self._counts[k], 1) for k in keys]
+        return dict(zip(keys, all_reduce_mean_values(means, self.mesh)))
 
     def reset(self) -> None:
         self._pending = []

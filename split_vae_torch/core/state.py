@@ -36,6 +36,15 @@ class TrainState:
         return self
 
 
+def tree_tensors(tree) -> List[torch.Tensor]:
+    """The tensors of an optimizer state (NamedTuples, tuples, lists), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in tree_tensors(sub)]
+    return []
+
+
 def create_train_state(model: nn.Module, tx: GradientTransformation, seed: int = 0) -> TrainState:
     """Wraps a built model; the generator lives on the model's device."""
     params = list(model.parameters())

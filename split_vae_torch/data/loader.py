@@ -14,8 +14,14 @@ canvases); normalization and augmentation run on the device
 Both read one index stream (``_epoch_index_batches``): for a seed, the JAX
 package's ``np.random.RandomState`` permutations, so the two packages and the
 two paths see the same examples in the same order. Batches drop the
-remainder. Single process only: the per-process slices of a multi-process run
-wait for data-parallel training (ROADMAP A8).
+remainder.
+
+Data parallelism (``parallel/mesh.py``): in ``device_resident_batches`` each
+rank takes its rows (``rows``) of the global batch of the same permutation,
+the JAX single-process mesh's order, which is the 1-rank order; in
+``iterate_batches`` process k of N streams batches of its own disjoint 1/N
+slice of each epoch's permutation (``process_index``, ``process_count``),
+index for index the JAX package's pod path.
 """
 
 from __future__ import annotations
@@ -67,11 +73,17 @@ def _epoch_index_batches(
     process_index: Optional[int] = None,
     process_count: Optional[int] = None,
 ) -> Iterator[np.ndarray]:
-    """The index stream: one permutation per epoch, cut into batches."""
-    if (process_count or 1) > 1:
-        raise NotImplementedError("per-process data slices come with data-parallel "
-                                  "training (ROADMAP A8)")
+    """The index stream: one permutation per epoch, cut into batches. With
+    ``process_count`` N > 1, process k takes the k-th of N equal disjoint
+    slices of each permutation (the remainder dropped) and cuts it into
+    batches of ``batch_size``, its own share of the global batch
+    (split_vae_tpu/data/loader.py:40-78)."""
+    pc = process_count or 1
+    pi = process_index or 0
     for idx in _epoch_orders(n_total, shuffle, repeat, seed):
+        if pc > 1:
+            per_process = n_total // pc
+            idx = idx[pi * per_process:(pi + 1) * per_process]
         for start in _batch_starts(len(idx), batch_size, drop_remainder):
             yield idx[start:start + batch_size]
 
@@ -110,9 +122,11 @@ def device_resident_batches(
     seed: int = 0,
     drop_remainder: bool = True,
     device="cuda",
+    rows: slice = slice(None),
 ) -> Iterator:
     """Batches gathered on ``device`` from a copy of the dataset made there
-    once; the order is ``iterate_batches``'s."""
+    once; the order is ``iterate_batches``'s. ``rows`` takes this rank's rows
+    of each batch of ``batch_size`` (the global batch)."""
     device = torch.device(device)
     imgs = torch.from_numpy(np.ascontiguousarray(ds.images)).to(device)
     labels = (torch.from_numpy(np.ascontiguousarray(ds.labels)).to(device)
@@ -120,7 +134,7 @@ def device_resident_batches(
     for idx in _epoch_orders(len(ds), shuffle, repeat, seed):
         order = torch.from_numpy(idx).to(device)
         for start in _batch_starts(len(idx), batch_size, drop_remainder):
-            sel = order[start:start + batch_size]
+            sel = order[start:start + batch_size][rows]
             batch = imgs.index_select(0, sel)
             yield (batch, labels.index_select(0, sel)) if labels is not None else batch
 

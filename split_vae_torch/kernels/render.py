@@ -186,10 +186,11 @@ def render_noise(seed: torch.Tensor, b: int, k: int, c: int, h: int, w: int) -> 
     """Standard-normal render noise [B,K,C,H,W] for an int32 ``seed`` tensor.
 
     On a CUDA seed the kernel writes the field; on a CPU seed numpy computes
-    the same numbers.
+    the same numbers (a negative seed read as the uint32 the kernels add).
     """
     if not seed.is_cuda:
-        return torch.from_numpy(render_noise_reference(int(seed.reshape(-1)[0]), b, k, c, h, w))
+        key = int(seed.reshape(-1)[0]) & 0xFFFFFFFF
+        return torch.from_numpy(render_noise_reference(key, b, k, c, h, w))
     _check(seed, torch.int32, "seed")
     out = torch.empty((b, k, c, h, w), device=seed.device, dtype=torch.float32)
     err = _load().render_noise(seed.data_ptr(), out.data_ptr(), b, k, c, h, w, _stream(seed))

@@ -118,7 +118,7 @@ class _SpairBase(nn.Module):
             obj_full = None
         else:
             obj_recon_unnorm, obj_recon_alpha, obj_full, obj_bbox = self.decoder(z_what, z_where)
-            eps = noise.normal(obj_full.shape[:-1] + (c,)) if training else None
+            eps = noise.normal(obj_full.shape[:-1] + (c,), per_example=True) if training else None
             x_recon = render(obj_full, bg_recon, z_depth, z_pres, z_pres_logits, training, c,
                              eps)
         return SpairOutput(

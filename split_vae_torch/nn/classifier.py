@@ -47,7 +47,9 @@ class Classifier(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False,
                 noise: Optional[Noise] = None) -> torch.Tensor:
         def drop(v):
-            return dropout(v, noise.keep(v.shape, DROPOUT), DROPOUT) if training else v
+            if not training:
+                return v
+            return dropout(v, noise.keep(v.shape, DROPOUT, per_example=True), DROPOUT)
 
         x = F.relu(self.Conv_0(self.BatchNorm_0(x, training)))
         x = F.relu(self.Conv_1(self.BatchNorm_1(x, training)))

@@ -47,7 +47,8 @@ class ConvEncoder(nn.Module):
         x = flatten(x)
         z_mean = self.Dense_0(x)
         z_sig = F.softplus(self.Dense_1(x))
-        return reparameterize(z_mean, z_sig, noise.normal_like(z_sig)), z_mean, z_sig
+        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig, per_example=True))
+        return z, z_mean, z_sig
 
 
 class FCEncoder(nn.Module):
@@ -75,7 +76,8 @@ class FCEncoder(nn.Module):
             return F.relu(self.Dense_2(x))
         z_mean = self.Dense_2(x)
         z_sig = self.Dense_3(x)  # the raw head taken as sigma (quirk)
-        return reparameterize(z_mean, z_sig, noise.normal_like(z_sig)), z_mean, z_sig
+        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig, per_example=True))
+        return z, z_mean, z_sig
 
 
 GM_DROPOUT = 0.2
@@ -123,12 +125,12 @@ class GMVaeEncoder(nn.Module):
     def sample_draws(self, noise: Noise, batch: int):
         """In the compute dtype, as the logits and sigmas they perturb."""
         dt = self.z_sig_head.dtype
-        return (noise.uniform((batch, self.y_size), dt),
-                noise.normal((batch, self.latent_dims), dt))
+        return (noise.uniform((batch, self.y_size), dt, per_example=True),
+                noise.normal((batch, self.latent_dims), dt, per_example=True))
 
     def keep_draws(self, noise: Noise, batch: int):
-        return (noise.keep((batch, 1024), GM_DROPOUT),
-                noise.keep((batch, self.flat), GM_DROPOUT))
+        return (noise.keep((batch, 1024), GM_DROPOUT, per_example=True),
+                noise.keep((batch, self.flat), GM_DROPOUT, per_example=True))
 
     def forward(self, x: torch.Tensor, training: bool, noise: Noise):
         u, eps = self.sample_draws(noise, x.shape[0])

@@ -34,7 +34,7 @@ def _encode_image(convs, dense_mean, dense_sig, x: torch.Tensor, noise: Noise):
     x = flatten(x)
     z_mean = dense_mean(x)
     z_sig = F.softplus(dense_sig(x))
-    return reparameterize(z_mean, z_sig, noise.normal_like(z_sig)), z_mean, z_sig
+    return reparameterize(z_mean, z_sig, noise.normal_like(z_sig, per_example=True)), z_mean, z_sig
 
 
 def _decode_image(dense, conv, up1, up2, up3, z: torch.Tensor, image_hw) -> torch.Tensor:
@@ -138,7 +138,7 @@ class ImageEncoderDense(nn.Module):
         x = F.relu(self.Dense_1(x))
         z_mean = self.Dense_2(x)
         z_sig = F.softplus(self.Dense_3(x))
-        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig))
+        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig, per_example=True))
         return z, z_mean, z_sig
 
 
@@ -183,7 +183,7 @@ class ObjEncoder(nn.Module):
         hdn = F.relu(self.Dense_0(flatten(x)))
         z_mean = self.Dense_1(hdn)
         z_sig = F.softplus(self.Dense_2(hdn))
-        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig))
+        z = reparameterize(z_mean, z_sig, noise.normal_like(z_sig, per_example=True))
         return z, z_mean, z_sig
 
 
@@ -221,14 +221,15 @@ class ObjEncoderScramble(nn.Module):
         nh, nw = gh // p, gw // p
         patches = x.reshape(b * k, nh, p, nw, p, c).permute(0, 1, 3, 2, 4, 5)
         patches = patches.reshape(b * k, nh * nw, p, p, c)
-        patches = patches[:, noise.permutation(nh * nw)]
+        patches = patches[:, noise.permutation(nh * nw)]  # one for the batch, every rank's
         x_hat = patches.reshape(b * k, nh, nw, p, p, c).permute(0, 1, 3, 2, 4, 5)
         x_hat = x_hat.reshape(b * k, gh, gw, c)
 
         z_what_mean, z_what_sigma = self._vae_head(x, "what")
-        z_what = reparameterize(z_what_mean, z_what_sigma, noise.normal_like(z_what_sigma))
+        z_what = reparameterize(z_what_mean, z_what_sigma,
+                                noise.normal_like(z_what_sigma, per_example=True))
         z_l_mean, z_l_sig = self._vae_head(x_hat, "local")
-        z_l = reparameterize(z_l_mean, z_l_sig, noise.normal_like(z_l_sig))
+        z_l = reparameterize(z_l_mean, z_l_sig, noise.normal_like(z_l_sig, per_example=True))
         return (z_what, z_what_mean, z_what_sigma, z_l, z_l_mean, z_l_sig,
                 x_hat.reshape(b, k, gh, gw, c))
 
@@ -356,7 +357,8 @@ class SpairEncoder(nn.Module):
         z_where_mean = wh[:, :nw]
         z_where_sigma = F.softplus(wh[:, nw:2 * nw] - 1.0)
         features_1 = F.relu(wh[:, 2 * nw:])
-        z_where = reparameterize(z_where_mean, z_where_sigma, noise.normal_like(z_where_sigma))
+        z_where = reparameterize(z_where_mean, z_where_sigma,
+                                 noise.normal_like(z_where_sigma, per_example=True))
 
         partial_program = z_where
         z_where_grid = z_where.reshape(b, gh, gw, nw)
@@ -375,14 +377,15 @@ class SpairEncoder(nn.Module):
         z_depth_mean = dh[:, :1]
         z_depth_sigma = F.softplus(dh[:, 1:2])
         features_2 = F.relu(dh[:, 2:])
-        z_depth = reparameterize(z_depth_mean, z_depth_sigma, noise.normal_like(z_depth_sigma))
+        z_depth = reparameterize(z_depth_mean, z_depth_sigma,
+                                 noise.normal_like(z_depth_sigma, per_example=True))
         partial_program = torch.cat([partial_program, z_depth], dim=1)
 
         layer_inp = torch.cat([features, features_2, partial_program], dim=1)
 
         z_pres_logits = torch.clamp(self.pres_d2(F.relu(self.pres_d1(layer_inp))), -10.0, 10.0)
         z_pres_pre_sigmoid = concrete_binary_pre_sigmoid_sample(
-            z_pres_logits, self.tau, noise.uniform_like(z_pres_logits))
+            z_pres_logits, self.tau, noise.uniform_like(z_pres_logits, per_example=True))
         z_pres = torch.sigmoid(z_pres_pre_sigmoid)
 
         def grid(v):
@@ -440,6 +443,10 @@ def fused_decode_render(decoder: SpairDecoder, noise: Noise, z_what, z_where, z_
     function, each cell confined to its row band). The kernels take float32:
     bfloat16 activations go up at their boundary, as the JAX package casts
     them for its Pallas kernels (split_vae_tpu/nn/spair_nets.py:424-431).
+    The kernels key image i's noise by seed + i; under data parallelism the
+    seed is offset by rank*B (``Noise.image_seed``), so the ranks' fields are
+    the 1-rank field of the global batch, as the JAX package's shard-mapped
+    render seeds shard j (split_vae_tpu/nn/spair_nets.py:448-487).
     Returns (obj_recon_unnorm, obj_recon_alpha, obj_bbox_mask, x_recon).
     """
     obj_ru, obj_ra, (ys, xs), bbox = decoder(z_what, z_where, fused=True)
@@ -452,7 +459,7 @@ def fused_decode_render(decoder: SpairDecoder, noise: Noise, z_what, z_where, z_
                                 (b, image_hw[0], image_hw[1], num_channel))
     render = (windowed_kernels.fused_paste_render_windowed if windowed
               else render_kernels.fused_paste_render)
-    x_recon = render(concat, ys, xs, zp, wd, bg_img, noise.seed(), noise_scale)
+    x_recon = render(concat, ys, xs, zp, wd, bg_img, noise.image_seed(b), noise_scale)
     return obj_ru, obj_ra, bbox, x_recon
 
 

@@ -111,12 +111,14 @@ def augment_draws(kind: str, x_shape, size: int, noise: Noise):
     half-width [B] in {3..6}); none for no_op and high_low_pass."""
     b = x_shape[0]
     if kind == "scramble":
-        return noise.uniform(scramble_shape(x_shape, size))
+        return noise.uniform(scramble_shape(x_shape, size), per_example=True)
     if kind == "mix_scramble":
-        idx = noise.randint(len(MIX_SIZES), (b,))
-        return (idx, [noise.uniform(scramble_shape(x_shape, s)) for s in MIX_SIZES])
+        idx = noise.randint(len(MIX_SIZES), (b,), per_example=True)
+        return (idx, [noise.uniform(scramble_shape(x_shape, s), per_example=True)
+                     for s in MIX_SIZES])
     if kind == "blur":
-        return (5.0 + 5.0 * noise.uniform((b,)), 3 + noise.randint(4, (b,)))
+        return (5.0 + 5.0 * noise.uniform((b,), per_example=True),
+                3 + noise.randint(4, (b,), per_example=True))
     return None
 
 

@@ -23,8 +23,18 @@ draws come from the eval generator, after the test sweep's. The step timer
 restarts after them, so ``train/imgs_per_sec`` leaves them out.
 ``--compute_dtype bfloat16`` builds every Dense and Conv in bfloat16 (the
 parameters stay float32). The step's metrics stay on the device until an
-interval's ``result()``. Not ported yet, and refused with the ROADMAP item
-that brings it: more than one shard or process (A8).
+interval's ``result()``.
+
+Data parallelism, one process a GPU (``parallel/mesh.py``): ``--coordinator``
+with ``--num_processes`` and ``--process_id``, or torchrun's environment.
+``--batch_size`` is the global batch; every rank takes its rows of it and the
+N-rank run takes the 1-rank run's steps. Rank 0 makes the run directory (its
+name goes to the others), writes the records, the checkpoints and the final
+weights, and runs the test sweeps, the probe classifier and the PNGs; the
+other ranks wait at a barrier after each eval and each checkpoint. Every rank
+restores ``--resume`` and then takes rank 0's state. Not ported yet, and
+refused with the ROADMAP item that brings it: tensor parallelism
+(``--num_model_shards`` > 1, A8).
 """
 
 from __future__ import annotations
@@ -53,6 +63,18 @@ from split_vae_torch.data.loader import (
 from split_vae_torch.data.multicub import get_multicub
 from split_vae_torch.models.spair import LGGlimpseSPAIR, LGSPAIR, get_spair_model
 from split_vae_torch.models.vae import GMVae, LGGMVae, get_vae_model
+from split_vae_torch.parallel.mesh import (
+    TENSOR_PARALLEL,
+    Mesh,
+    barrier,
+    broadcast_object,
+    broadcast_state_,
+    create_mesh,
+    is_main,
+    local_rank,
+    maybe_initialize_distributed,
+    rows,
+)
 from split_vae_torch.train import probes as probes_mod
 from split_vae_torch.train.optim import (
     GradientTransformation,
@@ -83,108 +105,149 @@ def build_vae_model(config, image_hw, device="cuda") -> Tuple[torch.nn.Module,
     return get_vae_model(config, image_hw, device=device), tx
 
 
-def _train_iterator(train_ds: ArrayDataset, config, device: torch.device):
-    """The dataset resident on the device when it fits under
-    DEVICE_RESIDENT_MAX_BYTES (no host-device copy a step), else host batches
-    streamed with prefetch; ``-host_data`` forces the streaming path."""
+def _train_iterator(train_ds: ArrayDataset, config, mesh: Mesh):
+    """This rank's batches (split_vae_tpu/train/loop.py:68-96): the dataset
+    resident on the device when it fits under DEVICE_RESIDENT_MAX_BYTES (no
+    host-device copy a step; each rank gathers its rows of the global batch),
+    else host batches streamed with prefetch, each process from its own
+    disjoint slice of the data when there are several (the JAX package's pod
+    path); ``-host_data`` forces the streaming path."""
+    mine = rows(mesh, config.batch_size)  # raises unless the ranks' shares are equal
     nbytes = train_ds.images.nbytes + (
         train_ds.labels.nbytes if train_ds.labels is not None else 0)
     if not config.host_data and nbytes <= DEVICE_RESIDENT_MAX_BYTES:
         return device_resident_batches(train_ds, config.batch_size, repeat=True,
-                                       seed=config.seed, device=device)
+                                       seed=config.seed, device=mesh.device, rows=mine)
     return device_prefetch(
-        iterate_batches(train_ds, config.batch_size, repeat=True, seed=config.seed),
-        device=device)
+        iterate_batches(train_ds, config.batch_size // mesh.world, repeat=True, seed=config.seed,
+                        process_index=mesh.rank, process_count=mesh.world),
+        device=mesh.device)
 
 
-def _start(config) -> torch.device:
-    """Refuses what is not ported yet; the device; the debug mode."""
-    if (config.num_data_shards > 1 or config.num_model_shards > 1 or config.coordinator
-            or (config.num_processes or 1) > 1):
-        raise NotImplementedError("more than one data or model shard, or process, comes with "
-                                  "data-parallel training (ROADMAP A8)")
-    device = setup_runtime(config.platform)
+def _start(config) -> Mesh:
+    """The device, the process group (before any collective) and this
+    process's mesh; refuses tensor parallelism; the debug mode."""
+    if config.num_model_shards > 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
+    device = setup_runtime(config.platform, local_rank(config.process_id))
+    maybe_initialize_distributed(config.coordinator, config.num_processes, config.process_id,
+                                 backend="nccl" if device.type == "cuda" else "gloo")
+    mesh = create_mesh(config.num_data_shards, config.num_model_shards, device)
+    if mesh.world > 1:
+        print(f"Rank {mesh.rank} of {mesh.world} ({mesh.backend}) on {device}")
     if config.debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    return device
+    return mesh
 
 
-def _resume(config, state: TrainState) -> None:
+def _run_dir(config, mesh: Mesh) -> str:
+    """Made by rank 0 alone (names have second resolution), its name sent to
+    the other ranks."""
+    run_dir = broadcast_object(make_run_dir(config.output_dir) if is_main(mesh) else None, mesh)
+    if is_main(mesh):
+        print(f"Run dir: {run_dir}")
+    return run_dir
+
+
+def _rank0_first(load, mesh: Mesh):
+    """``load()`` on rank 0, then on the others: a dataset's first load may
+    write its cache (MultiCUB's .npz), which the other ranks then read."""
+    data = load() if is_main(mesh) else None
+    barrier(mesh)
+    return data if is_main(mesh) else load()
+
+
+def _resume(config, state: TrainState, mesh: Mesh) -> None:
+    """Every rank restores ``--resume``; then every rank holds rank 0's state
+    (also without a resume: the ranks' models are built alike, and this makes
+    sure of it)."""
     if config.resume:
         ckpt.restore_checkpoint(config.resume, state)
-        print(f"Resumed from {config.resume} at step {state.step}")
+        if is_main(mesh):
+            print(f"Resumed from {config.resume} at step {state.step}")
+    broadcast_state_(state, mesh)
 
 
 def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir: str,
-           max_steps: Optional[int], meta: Optional[Dict[str, float]] = None) -> TrainState:
+           max_steps: Optional[int], mesh: Mesh,
+           meta: Optional[Dict[str, float]] = None) -> TrainState:
     """The JAX loop's schedule around ``train_step``; ``evaluate(step, logger,
     batch)`` runs the test sweeps and the PNGs (``batch`` is the last train
-    batch); ``meta`` is logged first, under ``meta/``.
-    ``--profile_dir`` traces step 100."""
+    batch), on rank 0 alone; ``meta`` is logged first, under ``meta/``.
+    ``--profile_dir`` traces step 100 (rank 0's)."""
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    train_metrics = MeanMetrics()
+    main = is_main(mesh)
+    train_metrics = MeanMetrics(mesh)
     timer = StepTimer()
     total_steps = min(config.training_steps, max_steps or config.training_steps)
-    logger = RunLogger(run_dir)
+    logger = RunLogger(run_dir) if main else None
     try:
         step = state.step
-        if meta:
+        if meta and main:
             logger.log(step, meta, prefix="meta/")
         while step <= total_steps:
             batch = next(train_iter)
-            with maybe_profile(config.profile_dir if step == 100 else None, step):
+            with maybe_profile(config.profile_dir if step == 100 and main else None, step):
                 state, m = train_step(state, batch)
             train_metrics.update(m)
-            timer.add(config.batch_size)
+            timer.add(config.batch_size)  # the global batch
             step += 1
 
             eval_now = bool(config.eval_interval and step % config.eval_interval == 0)
             if config.log_every and step % config.log_every == 0 and not eval_now:
                 r = train_metrics.result()
-                print(f"[step {step}] total_loss: {r.get('total_loss', float('nan')):.4f}")
+                if main:
+                    print(f"[step {step}] total_loss: {r.get('total_loss', float('nan')):.4f}")
             if eval_now or step == total_steps:
                 rate = timer.rate(sync_value=m["total_loss"])
                 tm = train_metrics.result()
                 tm["imgs_per_sec"] = rate
-                logger.log(step, tm, prefix="train/")
                 train_metrics.reset()
-                evaluate(step, logger, batch)
+                if main:
+                    logger.log(step, tm, prefix="train/")
+                    evaluate(step, logger, batch)
+                barrier(mesh)
                 timer.reset()
             if (config.checkpoint_interval and step % config.checkpoint_interval == 0) \
                     or step == total_steps:
-                ckpt.save_checkpoint(ckpt_dir, state)
+                if main:
+                    ckpt.save_checkpoint(ckpt_dir, state)
+                barrier(mesh)
 
-        ckpt.save_weights(os.path.join("models", os.path.basename(run_dir) + ".pt"),
-                          state.model)
+        if main:
+            ckpt.save_weights(os.path.join("models", os.path.basename(run_dir) + ".pt"),
+                              state.model)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     print("Training done!")
     return state
 
 
 def train_vae(config, max_steps: Optional[int] = None):
     """Train LGVae / LGGMVae / GMVae (vae/trainer.py:72-421)."""
-    device = _start(config)
-    run_dir = make_run_dir(config.output_dir)
-    print(f"Run dir: {run_dir}")
+    mesh = _start(config)
+    device = mesh.device
+    run_dir = _run_dir(config, mesh)
 
-    train_ds, test_ds, input_shape = get_vae_dataset(config)
+    train_ds, test_ds, input_shape = _rank0_first(lambda: get_vae_dataset(config), mesh)
     h, w = input_shape[1], input_shape[2]
     model, tx = build_vae_model(config, (h, w), device)
     state = create_train_state(model, tx, seed=config.seed)
     print(f"Model {config.model}: {sum(p.numel() for p in model.parameters()):,} params")
-    _resume(config, state)
+    _resume(config, state, mesh)
 
-    vae_step = make_vae_train_step(config)
+    vae_step = make_vae_train_step(config, mesh)
     eval_step = make_vae_eval_step(config, model)
     labeled = train_ds.labels is not None
     eval_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
 
-    # The classifier probe of a labelled SVHN run (vae/trainer.py:81-97).
+    # The classifier probe of a labelled SVHN run (vae/trainer.py:81-97), on
+    # rank 0, which runs the evals.
     gm = isinstance(model, (LGGMVae, GMVae))
     probe_step = None
     meta = None
-    if config.label and config.dataset.lower().startswith("svhn"):
+    if config.label and config.dataset.lower().startswith("svhn") and is_main(mesh):
         classifier = probes_mod.load_or_train_classifier(config, device=device)
         test_acc = probes_mod.evaluate_classifier(classifier, test_ds)
         print(f"Classifier test acc: {test_acc:.4f}")
@@ -228,18 +291,19 @@ def train_vae(config, max_steps: Optional[int] = None):
         except Exception as e:  # a figure never stops training, as in the JAX loop
             print(f"[viz] skipped: {type(e).__name__}: {e}")
 
-    state = _train(config, state, train_step, _train_iterator(train_ds, config, device),
-                   evaluate, run_dir, max_steps, meta=meta)
+    barrier(mesh)
+    state = _train(config, state, train_step, _train_iterator(train_ds, config, mesh),
+                   evaluate, run_dir, max_steps, mesh, meta=meta)
     return state, run_dir
 
 
 def train_spair(config, max_steps: Optional[int] = None):
     """Train SPAIR / BG-SPAIR / LG-SPAIR / LGGlimpseSPAIR (spair/trainer.py:112-424)."""
-    device = _start(config)
-    run_dir = make_run_dir(config.output_dir)
-    print(f"Run dir: {run_dir}")
+    mesh = _start(config)
+    device = mesh.device
+    run_dir = _run_dir(config, mesh)
 
-    train_ds, test_sets, input_shape, _ = get_multicub(config)
+    train_ds, test_sets, input_shape, _ = _rank0_first(lambda: get_multicub(config), mesh)
     size, num_channel = input_shape[1], input_shape[3]
     config.image_size = (size, size, num_channel)
 
@@ -247,7 +311,7 @@ def train_spair(config, max_steps: Optional[int] = None):
     # Keras Adam(clipnorm=1.0) clips per tensor, not globally (spair/main.py:109).
     state = create_train_state(model, spair_optimizer(config.learning_rate), seed=config.seed)
     print(f"Model {config.model}: {sum(p.numel() for p in model.parameters()):,} params")
-    _resume(config, state)
+    _resume(config, state, mesh)
 
     eval_step = make_spair_eval_step(config, model)
     eval_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
@@ -277,8 +341,8 @@ def train_spair(config, max_steps: Optional[int] = None):
             except Exception as e:
                 print(f"[viz] skipped: {type(e).__name__}: {e}")
 
-    state = _train(config, state, make_spair_train_step(config),
-                   _train_iterator(train_ds, config, device), evaluate, run_dir, max_steps)
+    state = _train(config, state, make_spair_train_step(config, mesh=mesh),
+                   _train_iterator(train_ds, config, mesh), evaluate, run_dir, max_steps, mesh)
     return state, run_dir
 
 

@@ -58,12 +58,13 @@ def make_vae_probe_step(model, classifier: Classifier, gm: bool) -> Callable:
                 pred = torch.argmax(classifier(x, False), dim=-1)
                 return torch.mean((pred == target).to(torch.float32))
 
-            random_z_l = noise.normal(out.z_x_hat.shape)
+            random_z_l = noise.normal(out.z_x_hat.shape, per_example=True)
             if gm:
                 random_z_g = (out.z_prior_mean
-                              + noise.normal(out.z_prior_mean.shape) * out.z_prior_sig)
+                              + noise.normal(out.z_prior_mean.shape, per_example=True)
+                              * out.z_prior_sig)
             else:
-                random_z_g = noise.normal(out.z_x.shape)
+                random_z_g = noise.normal(out.z_x.shape, per_example=True)
             metrics = {
                 "classifier_recon_acc": acc(out.x_mean),
                 "classifier_random_z_l_acc": acc(model.decode(out.z_x, random_z_l)[0]),
@@ -76,7 +77,7 @@ def make_vae_probe_step(model, classifier: Classifier, gm: bool) -> Callable:
             if gm:
                 swap_mean = torch.roll(out.z_prior_mean, 1, dims=0)
                 swap_sig = torch.roll(out.z_prior_sig, 1, dims=0)
-                z_g_swap = swap_mean + noise.normal(swap_mean.shape) * swap_sig
+                z_g_swap = swap_mean + noise.normal(swap_mean.shape, per_example=True) * swap_sig
                 x_swap = model.decode(z_g_swap, out.z_x_hat, rescale=False)[0]
                 metrics["probe_swapped_y_z_g_acc_rangefix"] = acc(x_swap)
                 metrics["probe_swapped_y_transfer_acc_rangefix"] = acc(

@@ -19,6 +19,14 @@ bfloat16 for the float32 dots left inside it (``matmul_precision``,
 split_vae_tpu/train/steps.py:70-79), the port sets nothing: no float32
 matmul or convolution is left in its bfloat16 train steps (the crop and the
 render are its own kernels, the geometry and the losses elementwise).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): the train steps take this
+rank's rows of the global batch, draw the global batch's noise and keep
+their rows (``core/noise.py``), and reduce the gradients with one flat
+all-reduce before the optimizer sees them (XLA's psum over 'data'), so the
+clip, Adam and the non-finite skip take the same decision on every rank.
+Every loss is a mean over the batch, so the ranks' mean gradient is the
+global batch's. The eval steps run on one rank.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.core.state import TrainState
 from split_vae_torch.nn.common import activation_dtype
+from split_vae_torch.parallel.mesh import Mesh, all_reduce_mean_
 from split_vae_torch.ops.patches import augment_batch, augment_draws
 from split_vae_torch.train import losses
 from split_vae_torch.train.optim import notfinite_count
@@ -74,11 +83,13 @@ def check_compute_dtype(config, model) -> None:
                          f"{have or 'float32'}; build it from the same config")
 
 
-def _apply(state: TrainState, total: torch.Tensor, metrics) -> Dict[str, torch.Tensor]:
-    """Backward of ``total``, the optimizer update in place; the step's metrics."""
+def _apply(state: TrainState, total: torch.Tensor, metrics, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Backward of ``total``, the ranks' mean of the gradients, the optimizer
+    update in place; the step's metrics (this rank's)."""
     params = state.params
     grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    all_reduce_mean_(grads, mesh)
     state.apply_gradients(grads)
     metrics = {k: v.detach() for k, v in metrics.items()}
     cnt = notfinite_count(state.opt_state)
@@ -100,9 +111,9 @@ def vae_loss_fn(config) -> Callable:
     raise NotImplementedError(config.model)
 
 
-def make_vae_train_step(config) -> Callable:
+def make_vae_train_step(config, mesh: Mesh = Mesh()) -> Callable:
     """Returns train_step(state, batch, replay=None) -> (state, metrics) for
-    LGVae, LGGMVae or GMVae (config.model).
+    LGVae, LGGMVae or GMVae (config.model); ``batch`` is this rank's rows.
 
     Draw order as in the JAX step: the augmentation's draws (k_aug), then the
     model's (k_sample, then the GM models' dropout keep masks; see their
@@ -115,10 +126,10 @@ def make_vae_train_step(config) -> Callable:
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         check_compute_dtype(config, state.model)
-        noise = Noise(state.generator, replay)
+        noise = Noise(state.generator, replay, rank=mesh.rank, world=mesh.world)
         images = augment(config, normalize_images(batch, "tanh"), noise)
         total, metrics = loss_of(state.model(images, True, noise), images)
-        return state, _apply(state, total, metrics)
+        return state, _apply(state, total, metrics, mesh)
 
     return train_step
 
@@ -143,8 +154,10 @@ def make_vae_eval_step(config, model) -> Callable:
     return eval_step
 
 
-def make_spair_train_step(config, windowed_render: bool = False) -> Callable:
-    """Returns train_step(state, batch, replay=None) -> (state, metrics).
+def make_spair_train_step(config, windowed_render: bool = False,
+                          mesh: Mesh = Mesh()) -> Callable:
+    """Returns train_step(state, batch, replay=None) -> (state, metrics);
+    ``batch`` is this rank's rows.
 
     ``windowed_render`` sends the fused render through the row-windowed kernel
     pair (``kernels/render_windowed.py``) instead of the full-canvas one.
@@ -158,11 +171,11 @@ def make_spair_train_step(config, windowed_render: bool = False) -> Callable:
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         check_compute_dtype(config, state.model)
-        noise = Noise(state.generator, replay)
+        noise = Noise(state.generator, replay, rank=mesh.rank, world=mesh.world)
         images = model_inputs(config, normalize_images(batch, "unit"), noise)
         out = state.model(images, True, noise, windowed=windowed_render)
         total, metrics = losses.spair_loss(out, images, config, state.step, training=True)
-        return state, _apply(state, total, metrics)
+        return state, _apply(state, total, metrics, mesh)
 
     return train_step
 

@@ -152,8 +152,14 @@ def test_index_stream_equals_jax(shuffle, drop):
 
 
 def test_index_stream_refuses_more_processes():
-    with pytest.raises(NotImplementedError, match="A8"):
-        next(port_loader._epoch_index_batches(8, 2, True, False, 0, True, 1, 2))
+    """The stream refused more than one process until data parallelism came
+    (ROADMAP A8); now process 1 of 2 takes the JAX package's slice, index
+    for index (more cases in tests/test_torch_parallel.py)."""
+    got = list(port_loader._epoch_index_batches(8, 2, True, False, 0, True, 1, 2))
+    want = list(jax_loader._epoch_index_batches(8, 2, True, False, 0, True, 1, 2))
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, np.asarray(b))
 
 
 def test_loaders_give_the_jax_batches():

@@ -6,6 +6,7 @@ the keys of the port's train or eval step (which the step tests hold to the
 JAX package's) plus ``imgs_per_sec`` under ``train/``; the checkpoints, the
 final weights at models/<run>.pt and the resume, which continues from the
 checkpoint's step. What is not ported yet raises, naming its ROADMAP item.
+Data parallelism in several processes is held in ``tests/test_torch_parallel.py``.
 The PNG artifacts of each eval are held in ``tests/test_torch_viz.py``.
 
 The test sweeps of the SPAIR run read 16 images a split (the synthetic
@@ -138,10 +139,18 @@ def test_train_vae_schedule_checkpoints_and_resume(capsys, host_data):
     (["--num_data_shards", "2", "-no_label"], "A8"),
     (["--num_processes", "2", "-no_label"], "A8"),
 ])
-def test_unported_options_raise(extra, item):
+def test_unported_options_raise(extra, item, monkeypatch):
+    """Tensor parallelism is not ported: NotImplementedError, naming its ROADMAP
+    item. Data parallelism is (tests/test_torch_parallel.py); a request of it
+    that this one process cannot meet (a data count other than its world of
+    1, or 2 processes with neither --coordinator nor torchrun's address) is
+    refused with a ValueError naming the same item."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     argv = ["--platform", "cpu", "-synthetic_data", "--synthetic_size", "8",
             "--training_steps", "1", "--global_latent_dims", "4", "--local_latent_dims", "4"]
-    with pytest.raises(NotImplementedError, match=item):
+    error = NotImplementedError if "--num_model_shards" in extra else ValueError
+    with pytest.raises(error, match=item):
         loop.train_vae(parse_vae_args(argv + extra))
 
 
