@@ -45,7 +45,14 @@ row-windowed, and the STN glimpse crop), and the VAE-family train steps
   P14 vae_main at config #2's flags through --coordinator, --num_processes
       and --process_id on NCCL: 2 processes on 2 cards where there are two,
       else a 1-process NCCL group on the one card, whose step does no
-      collective, and then the flat all-reduce on the card.
+      collective, and then the flat all-reduce on the card;
+  P15 tensor parallelism: P13's configuration, seed and batches in 4
+      processes on the one card over gloo, a grid of 2 data x 2 model (128
+      rows a data index), the 12 weights of the JAX rule sharded (31,670,272
+      of 32,073,267 parameters), held against P13's references; then, where
+      the machine has 2 cards, spair_main at config #5's flags with
+      --num_model_shards 2 over NCCL for 20 steps (with one card, a line says
+      that the CLI's tensor parallelism is held by the CPU tests).
 
 P6, P7, P9 and P12 also check the PNG artifacts of every eval: the names the
 JAX loop writes for the model and flags, each file decoded by
@@ -118,11 +125,26 @@ Phases, each of which must pass:
      the two halves' step computed in this process where |g| >= 1e-5
      (Adam's rule; the 1-process run's gap logged), after the 3 steps
      bit-equal across the ranks and within 2 lr a step of both references,
-     each rank's launches (the
+     and each of the 3 steps alone against the two halves' step computed in
+     this process from the ranks' own parameters and optimizer state before
+     it (gradients within 1e-5 of a tensor's L2 norm, parameters at Adam's
+     rule: a fault at any step fails it; the emulation's own chain beside it,
+     logged), each rank's launches (the
      render pair and the crop pair once a step), its step time, the
      all-reduce's device time (CUDA events) and its share of the step, and
      its peak device memory; P14: the records at step 20, the backend, and
      the all-reduce's time (in the step with 2 cards, else the explicit one);
+     P15: each rank at its place in the grid, the JAX rule's 12 sharded
+     weights, the ranks of a model index bit-equal and the replicated leaves
+     bit-equal on every rank, the data indices' mean
+     loss against the 1-process one (rtol 1e-5 at the first step, 1e-4
+     after), the first gathered gradients within 1e-5 of a norm of the data
+     halves' mean, the gathered parameters after the first step at Adam's
+     rule of both references, after 3 within 2 lr a step of both, each step
+     alone as P13's, each rank's launches (the render and crop pairs once a
+     step), step time, the bytes and CUDA-event ms a step of the forward's
+     all-gathers and of the model and data groups' all-reduces, and its peak
+     device memory, beside the card's name and power limit;
   6. one JSON line of the kernels, then the card, then {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -1293,10 +1315,10 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
     spair = test_prefixes != ("test/",)
     original, saves = ckpt.save_checkpoint, []
 
-    def timed_save(ckpt_dir, state, keep=3):
+    def timed_save(*args, **kwargs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        path = original(ckpt_dir, state, keep)
+        path = original(*args, **kwargs)
         saves.append((time.perf_counter() - t0, os.path.getsize(path)))
         return path
 
@@ -1508,23 +1530,44 @@ def spawn_ranks(fn_name: str, world: int, args: tuple, timeout: float):
             fail(f"{fn_name}: rank {r} exited {p.returncode}")
 
 
-def timed_reduce(torch, spans):
-    """Puts CUDA events around every call of the train steps' all-reduce
-    (``train/steps.py::all_reduce_mean_``); the (start, end) pairs go to
-    ``spans``. Returns a function that undoes it."""
+def timed_collectives(torch, spans):
+    """Puts CUDA events around every call of the train steps' collectives: the
+    gradients' all-reduce (``train/steps.py::reduce_gradients_``, "reduce")
+    and the model group's all-gathers of the sharded layers' outputs and
+    all-reduces of their inputs' gradients (``parallel/tensor.py``,
+    "gather", "model_reduce"). Appends (kind, bytes, start, end) to
+    ``spans``; returns a function that undoes it."""
+    from split_vae_torch.parallel import tensor as tensor_mod
     from split_vae_torch.train import steps as steps_mod
 
-    original = steps_mod.all_reduce_mean_
+    def timed(kind, fn, nbytes):
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((kind, nbytes(args, out), start, end))
+            return out
+        return call
 
-    def timed(tensors, mesh):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        original(tensors, mesh)
-        end.record()
-        spans.append((start, end))
+    def size(t):
+        return t.numel() * t.element_size()
 
-    steps_mod.all_reduce_mean_ = timed
-    return lambda: setattr(steps_mod, "all_reduce_mean_", original)
+    originals = ((steps_mod, "reduce_gradients_", lambda a, out: sum(size(t) for t in a[0])),
+                 (tensor_mod, "all_gather_cat", lambda a, out: size(out)),
+                 (tensor_mod, "all_reduce_sum_", lambda a, out: size(out)))
+    saved = [(module, name, getattr(module, name)) for module, name, _ in originals]
+    for (module, name, nbytes), (_, _, fn) in zip(originals, saved):
+        kind = {"reduce_gradients_": "reduce", "all_gather_cat": "gather"}.get(name,
+                                                                               "model_reduce")
+        setattr(module, name, timed(kind, fn, nbytes))
+    return lambda: [setattr(module, name, fn) for module, name, fn in saved]
+
+
+def span_totals(spans, kind, steps):
+    """The ms and MB a step of ``kind``'s spans, over ``steps`` steps."""
+    picked = [(b, s.elapsed_time(e)) for k, b, s, e in spans if k == kind]
+    return (sum(ms for _, ms in picked) / steps, sum(b for b, _ in picked) / 1e6 / steps)
 
 
 def p13_batches(torch, np, cfg, device):
@@ -1537,109 +1580,179 @@ def p13_batches(torch, np, cfg, device):
 def p13_steps(torch, np, mesh, render, crop, windowed):
     """P1's configuration, seed and two batches (config #5, global B=256)
     through P13_STEPS train steps on this rank's rows, every rank starting
-    from rank 0's state. Returns the losses (this rank's), the parameters
-    after the first step and after all, the first step's gradients as the
-    optimizer saw them, the kernels' launches in the steps, the mean host
-    time of the steps after the first, the all-reduce's device ms a step,
-    and the peak device memory."""
+    from rank 0's state, then keeping its blocks of the weights that the JAX
+    rule shards when the mesh has a model group (P15). Returns the losses
+    (this rank's), the kernels' launches in the steps, the mean host time of
+    the steps after the first, the collectives' device ms and MB a step (of
+    those steps), the peak device memory, this rank's parameters (blocks)
+    after the steps, and on rank 0 the 1-rank tensors of every step (taken
+    outside the timed steps): the gradients the optimizer saw, the
+    parameters and the optimizer state after it."""
     from split_vae_torch.core.config import config5
-    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.core.state import create_train_state, tree_tensors
     from split_vae_torch.models.spair import get_spair_model
-    from split_vae_torch.parallel.mesh import broadcast_state_, rows
+    from split_vae_torch.parallel.mesh import (
+        broadcast_state_,
+        gather_opt_state,
+        gather_state_dict,
+        infer_param_sharding,
+        model_reduce,
+        rows,
+        shard_state,
+    )
+    from split_vae_torch.parallel.tensor import all_gather_cat
     from split_vae_torch.train import steps as steps_mod
     from split_vae_torch.train.optim import GradientTransformation, spair_optimizer
 
     cfg = config5()
-    tx = spair_optimizer(cfg.learning_rate)
-    seen = {}
+    model = get_spair_model(cfg, device=mesh.device)
+    sharded = infer_param_sharding(model, mesh)
+    tx = spair_optimizer(cfg.learning_rate, model_reduce(mesh, model, sharded))
+    seen = []
 
     def update(grads, state):
-        if "first" not in seen:
-            seen["first"] = [g.detach().cpu() for g in grads]
+        seen.append([g.detach().clone() for g in grads])
         return tx.update(grads, state)
 
-    model = get_spair_model(cfg, device=mesh.device)
     state = create_train_state(model, GradientTransformation(tx.init, update), seed=cfg.seed)
     broadcast_state_(state, mesh)
+    shard_state(state, mesh, sharded)
+    names = [n for n, _ in model.named_parameters()]
+    shards = {n: state.model.get_submodule(n.rpartition(".")[0]).shard for n in sharded}
     mine = rows(mesh, cfg.batch_size)
     batches = [b[mine] for b in p13_batches(torch, np, cfg, mesh.device)]
     train_step = steps_mod.make_spair_train_step(cfg, mesh=mesh)
+    keep = mesh.rank == 0
+    record = {"grads": [], "params": [], "opt": []}
     spans = []
-    undo = timed_reduce(torch, spans)
+    undo = timed_collectives(torch, spans)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(render, crop, windowed)
     losses, times = [], []
     try:
         for i in range(P13_STEPS):
+            if i == 1:
+                spans.clear()
             t0 = time.perf_counter()
             state, metrics = train_step(state, batches[i % 2])
             losses.append(metrics["total_loss"])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            if i == 0:
-                after_first = [p.detach().cpu() for p in model.parameters()]
+            # The 1-rank tensors, through the unwrapped gathers (no span).
+            grads = [all_gather_cat(g, shards[n], 0) if n in shards else g
+                     for n, g in zip(names, seen.pop())]
+            full = gather_state_dict(model)
+            opt = tree_tensors(gather_opt_state(state))
+            if keep:
+                record["grads"].append([g.cpu() for g in grads])
+                record["params"].append([full[n].detach().cpu() for n in names])
+                record["opt"].append([t.cpu() for t in opt])
+            del grads, full, opt
     finally:
         undo()
     launches = read_launches(render, crop, windowed)
-    reduce_ms = [a.elapsed_time(b) for a, b in spans]
-    return {"losses": [v.item() for v in losses],
-            "notfinite": int(metrics["notfinite_updates"].item()),
-            "params": [p.detach().cpu() for p in model.parameters()], "params1": after_first,
-            "first_grads": seen["first"],
-            "launches": launches, "step_s": statistics.mean(times[1:]),
-            "reduce_ms": statistics.mean(reduce_ms[1:]) if reduce_ms else 0.0,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "names": [n for n, _ in model.named_parameters()]}
+    steps = P13_STEPS - 1
+    return dict(record, losses=[v.item() for v in losses],
+                notfinite=int(metrics["notfinite_updates"].item()), launches=launches,
+                step_s=statistics.mean(times[1:]),
+                reduce=span_totals(spans, "reduce", steps),
+                gather=span_totals(spans, "gather", steps),
+                model_reduce=span_totals(spans, "model_reduce", steps),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, names=names,
+                sharded=sharded, blocks=[p.detach().cpu() for p in model.parameters()],
+                params_a_rank=sum(p.numel() for p in model.parameters()))
 
 
-def p13_emulated(torch, np, device):
-    """The 2-rank P13 steps computed in this process, without the transport:
-    each step, each half of the batch with that rank's rows of the draws
-    (the generator rewound to the step's start for the second half) and its
-    render seed, the two halves' gradients summed and halved, as the ranks'
-    all-reduce does, then one update. Returns the first step's gradients
-    and the parameters after the first step and after all."""
-    from split_vae_torch.core.config import config5
+def emulated_step(torch, cfg, state, batch, generator_state):
+    """One step of the P13 ranks' function computed in this process, without
+    the transport: each half of the batch with that rank's rows of the draws
+    (the generator set to ``generator_state`` for each) and its render seed,
+    the two halves' gradients summed and halved, as the ranks' all-reduce
+    does, then one update. Returns the gradients."""
     from split_vae_torch.core.noise import Noise
-    from split_vae_torch.core.state import create_train_state
-    from split_vae_torch.models.spair import get_spair_model
     from split_vae_torch.parallel.mesh import Mesh, rows
     from split_vae_torch.train.losses import spair_loss
-    from split_vae_torch.train.optim import spair_optimizer
     from split_vae_torch.train.steps import model_inputs, normalize_images
+
+    params = state.params
+    sums = [torch.zeros_like(p) for p in params]
+    for r in range(RANKS):
+        state.generator.set_state(generator_state)
+        noise = Noise(state.generator, rank=r, world=RANKS)
+        half = batch[rows(Mesh(rank=r, world=RANKS), cfg.batch_size)]
+        images = model_inputs(cfg, normalize_images(half, "unit"), noise)
+        total, _ = spair_loss(state.model(images, True, noise), images, cfg, state.step,
+                              training=True)
+        for acc, g in zip(sums, torch.autograd.grad(total, params, allow_unused=True)):
+            if g is not None:
+                acc.add_(g)
+    grads = [g / RANKS for g in sums]
+    state.apply_gradients(grads)
+    return grads
+
+
+def compute_by_blocks(torch, layer, count: int) -> None:
+    """Makes the Dense or Conv ``layer`` compute as a model group of
+    ``count`` ranks computes it, in this process: each block of its weight's
+    output rows through the unsharded layer on its own (no bias), the blocks
+    concatenated along the features, then the bias. Its parameters stay
+    whole, and each block's gradient is the one a rank's own product gives."""
+    import types
+
+    def forward(self, x):
+        outs = []
+        for block in self.weight.chunk(count, 0):
+            proxy = object.__new__(type(self))
+            proxy.__dict__ = dict(self.__dict__, _parameters={"weight": block, "bias": None})
+            outs.append(type(self).forward(proxy, x))
+        return torch.cat(outs, dim=-1) + self.bias
+
+    layer.forward = types.MethodType(forward, layer)
+
+
+def p13_emulated(torch, np, device, restart=None, blocks=()):
+    """The 2-rank P13 steps computed in this process (``emulated_step``);
+    the weights named in ``blocks`` computed as a model group of 2 computes
+    them (``compute_by_blocks``: P15's grid). Without ``restart``, one chain
+    of P13_STEPS steps from the seeded initialization; with it (a rank's
+    record of ``p13_steps``), step t from the ranks' own parameters and
+    optimizer state after step t - 1, so that each step is held alone.
+    Returns each step's gradients, the parameters after it, and the
+    generator's state at its start."""
+    from split_vae_torch.core.config import config5
+    from split_vae_torch.core.state import create_train_state, tree_tensors
+    from split_vae_torch.models.spair import get_spair_model
+    from split_vae_torch.train.optim import spair_optimizer
 
     cfg = config5()
     model = get_spair_model(cfg, device=device)
+    for name in blocks:
+        compute_by_blocks(torch, model.get_submodule(name.rpartition(".")[0]), 2)
     state = create_train_state(model, spair_optimizer(cfg.learning_rate), seed=cfg.seed)
     batches = p13_batches(torch, np, cfg, device)
-    params = state.params
-    first = after_first = None
+    out = {"grads": [], "params": [], "gens": []}
     for i in range(P13_STEPS):
-        start = state.generator.get_state()
-        sums = [torch.zeros_like(p) for p in params]
-        for r in range(RANKS):
-            state.generator.set_state(start)
-            noise = Noise(state.generator, rank=r, world=RANKS)
-            half = batches[i % 2][rows(Mesh(rank=r, world=RANKS), cfg.batch_size)]
-            images = model_inputs(cfg, normalize_images(half, "unit"), noise)
-            total, _ = spair_loss(model(images, True, noise), images, cfg, state.step,
-                                  training=True)
-            for acc, g in zip(sums, torch.autograd.grad(total, params, allow_unused=True)):
-                if g is not None:
-                    acc.add_(g)
-        grads = [g / RANKS for g in sums]
-        state.apply_gradients(grads)
-        if first is None:
-            first = [g.cpu() for g in grads]
-            after_first = [p.detach().cpu() for p in params]
-    return first, after_first, [p.detach().cpu() for p in params]
+        gen = state.generator.get_state() if restart is None else restart["gens"][i]
+        if restart is not None and i > 0:
+            with torch.no_grad():
+                for p, saved in zip(state.params, restart["params"][i - 1]):
+                    p.copy_(saved)
+                for t, saved in zip(tree_tensors(state.opt_state), restart["opt"][i - 1]):
+                    t.copy_(saved)
+            state.step = i
+        grads = emulated_step(torch, cfg, state, batches[i % 2], gen)
+        out["gens"].append(gen)
+        out["grads"].append([g.cpu() for g in grads])
+        out["params"].append([p.detach().cpu() for p in state.params])
+    return out
 
 
-def p13_rank(rank, world, port, out):
-    """A P13 process: a gloo group of ``world`` processes on the one card
-    (NCCL refuses two ranks on one GPU), a draw from a CUDA generator of a
-    fixed seed, then ``p13_steps``; saves the results for the parent."""
+def p13_rank(rank, world, port, out, num_model=1):
+    """A P13 (P15: ``num_model`` 2) process: a gloo group of ``world``
+    processes on the one card (NCCL refuses two ranks on one GPU), a draw
+    from a CUDA generator of a fixed seed, then ``p13_steps``; saves the
+    results for the parent."""
     sys.path.insert(0, HERE)
     import numpy as np
     import torch
@@ -1653,15 +1766,15 @@ def p13_rank(rank, world, port, out):
     torch.cuda.set_device(0)
     use_fp32()
     mesh_mod.maybe_initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
-    mesh = mesh_mod.create_mesh(device=torch.device("cuda", 0))
+    mesh = mesh_mod.create_mesh(num_model=num_model, device=torch.device("cuda", 0))
     draw = torch.randn(P13_DRAW, generator=torch.Generator("cuda").manual_seed(P13_DRAW_SEED),
                        device="cuda").cpu()
     result = p13_steps(torch, np, mesh, render, crop, windowed)
-    result.update(draw=draw, backend=mesh.backend, world=mesh.world)
-    if rank != 0:
-        del result["first_grads"]
+    result.update(draw=draw, backend=mesh.backend, world=mesh.world,
+                  grid=(mesh.data_rank, mesh.model_rank))
     torch.save(result, os.path.join(out, f"p13_rank{rank}.pt"))
-    print(f"rank {rank} of {mesh.world} ({mesh.backend}): losses {result['losses']}", flush=True)
+    print(f"rank {rank} of {mesh.world} ({mesh.backend}), data index {mesh.data_rank}, model "
+          f"index {mesh.model_rank}: losses {result['losses']}", flush=True)
     dist.destroy_process_group()
 
 
@@ -1670,21 +1783,68 @@ def norm_gap(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
+def adam_gap(torch, names, params, ref_params, ref_grads):
+    """The largest |params - ref_params| where |ref_grads| >= 1e-5 (Adam's
+    rule), and the tensor that holds it."""
+    worst, at = 0.0, None
+    for name, pn, pr, g in zip(names, params, ref_params, ref_grads):
+        d = torch.where(g.abs() >= 1e-5, (pn - pr).abs(), torch.zeros_like(pr)).max().item()
+        if d > worst:
+            worst, at = d, name
+    return worst, at
+
+
+def hold_each_step(torch, np, label, names, ranks_record, chain, device, blocks=()):
+    """The check of P13_STEPS steps that can fail (a fault at any step moves
+    it): each step of the ranks against the ranks' function computed in this
+    process from the ranks' own state before that step
+    (``p13_emulated(restart=...)``): the gradients within 1e-5 of a tensor's
+    L2 norm, the parameters after it at Adam's rule (atol 1e-5 where |g| >=
+    1e-5). Beside it, the same against the emulation's own chain (logged,
+    not held: where the two part). Returns the misses."""
+    again = p13_emulated(torch, np, device, restart=dict(ranks_record, gens=chain["gens"]),
+                         blocks=blocks)
+    missed, logged = [], []
+    for t in range(P13_STEPS):
+        grad_gap = max(norm_gap(g, e) for g, e in zip(ranks_record["grads"][t],
+                                                       again["grads"][t]))
+        step_gap, at = adam_gap(torch, names, ranks_record["params"][t], again["params"][t],
+                                again["grads"][t])
+        chain_gap, chain_at = adam_gap(torch, names, ranks_record["params"][t],
+                                       chain["params"][t], chain["grads"][t])
+        chain_grad = max(norm_gap(g, e) for g, e in zip(ranks_record["grads"][t],
+                                                         chain["grads"][t]))
+        logged.append(f"step {t + 1}: gradients {grad_gap:.3g}, parameters {step_gap:.3g} "
+                      f"({at}); the chain's {chain_grad:.3g}, {chain_gap:.3g} ({chain_at})")
+        if not grad_gap <= 1e-5:
+            missed.append(f"step {t + 1}'s gradients lie {grad_gap:.3g} of a norm from the "
+                          f"ranks' function computed here from their state (> 1e-5)")
+        if not step_gap <= 1e-5:
+            missed.append(f"{at} after step {t + 1} differs by {step_gap:.3g} > 1e-5 from the "
+                          f"ranks' function computed here from their state, where |g| >= 1e-5")
+    log(f"{label} each step against the ranks' function computed in one process from the "
+        f"ranks' state before it (held: gradients 1e-5 of a norm, parameters 1e-5 where |g| >= "
+        f"1e-5), and against that function's own {P13_STEPS}-step chain (logged): "
+        + "; ".join(logged))
+    return missed
+
+
 def run_p13(torch, np, render, crop, windowed):
     """P13: LG-SPAIR at config #5, full width, in 2 processes on the one card
     (gloo), 128 rows each of the global batch of 256, against the same steps
     in one process, and against the two halves' steps computed here (what
-    the 2 ranks compute, without
-    the transport, ``p13_emulated``). Logs every comparison, then fails on
-    any that missed.
-    Returns the two ranks' launches summed."""
+    the 2 ranks compute, without the transport, ``p13_emulated``): its own
+    chain, and each step again from the ranks' state. Logs every comparison,
+    then fails on any that missed. Returns the two ranks' launches summed,
+    and the references P15 reuses: the 1-process run and the chain."""
     import tempfile
 
     from split_vae_torch.parallel.mesh import Mesh
 
     cuda0 = torch.device("cuda", 0)
     one = p13_steps(torch, np, Mesh(device=cuda0), render, crop, windowed)
-    split, split_params1, split_params = p13_emulated(torch, np, cuda0)
+    chain = p13_emulated(torch, np, cuda0)
+    split, split_params1, split_params = chain["grads"][0], chain["params"][0], chain["params"][-1]
     draw = torch.randn(P13_DRAW, generator=torch.Generator("cuda").manual_seed(P13_DRAW_SEED),
                        device="cuda").cpu()
     gc.collect()
@@ -1706,7 +1866,7 @@ def run_p13(torch, np, render, crop, windowed):
             if n != (0 if kernel.startswith("render_windowed") else P13_STEPS):
                 missed.append(f"rank {r} launched {kernel} {n} times in {P13_STEPS} steps")
     names = one["names"]
-    unequal = [name for name, a, b in zip(names, ranks[0]["params"], ranks[1]["params"])
+    unequal = [name for name, a, b in zip(names, ranks[0]["blocks"], ranks[1]["blocks"])
                if not torch.equal(a, b)]
     if unequal:
         missed.append(f"the ranks' parameters differ after the steps: {unequal[:5]}")
@@ -1720,10 +1880,10 @@ def run_p13(torch, np, render, crop, windowed):
     # the ranks' function computed here (the same rows, draws and render
     # seeds, summed and halved), and, as what float32 makes of a sum over
     # 4096 cells split in two, the 1-process gradient beside it.
-    gap_split = {n: norm_gap(g, s) for n, g, s in zip(names, ranks[0]["first_grads"], split)}
-    gap_one = {n: norm_gap(g, o) for n, g, o in zip(names, ranks[0]["first_grads"],
-                                                    one["first_grads"])}
-    floor = {n: norm_gap(s, o) for n, s, o in zip(names, split, one["first_grads"])}
+    first = ranks[0]["grads"][0]
+    gap_split = {n: norm_gap(g, s) for n, g, s in zip(names, first, split)}
+    gap_one = {n: norm_gap(g, o) for n, g, o in zip(names, first, one["grads"][0])}
+    floor = {n: norm_gap(s, o) for n, s, o in zip(names, split, one["grads"][0])}
     worst = max(gap_split, key=gap_split.get)
     if not gap_split[worst] <= 1e-5:
         missed.append(f"the first step's reduced gradient of {worst} is {gap_split[worst]:.3g} "
@@ -1735,28 +1895,23 @@ def run_p13(torch, np, render, crop, windowed):
     # and beside it the 1-process run. After all the steps, within 2 lr a
     # step of both: an update flipped by the first step moves the later
     # steps' gradients, and the card's convolutions sum in another order
-    # from run to run, so even the same function drifts by that much.
-    def adam_gap(params, ref_params, ref_grads):
-        worst, at = 0.0, None
-        for name, pn, pr, g in zip(names, params, ref_params, ref_grads):
-            d = torch.where(g.abs() >= 1e-5, (pn - pr).abs(), torch.zeros_like(pr)).max().item()
-            if d > worst:
-                worst, at = d, name
-        return worst, at
-
-    adam_split, adam_split_at = adam_gap(ranks[0]["params1"], split_params1, split)
-    adam_one, adam_one_at = adam_gap(ranks[0]["params1"], one["params1"], one["first_grads"])
+    # from run to run, so even the same function drifts by that much. Each
+    # step is held alone in ``hold_each_step``.
+    params1 = ranks[0]["params"][0]
+    adam_split, adam_split_at = adam_gap(torch, names, params1, split_params1, split)
+    adam_one, adam_one_at = adam_gap(torch, names, params1, one["params"][0], one["grads"][0])
     if not adam_split <= 1e-5:
         missed.append(f"{adam_split_at} after the first step differs by {adam_split:.3g} > 1e-5 "
                       f"from the ranks' function computed in one process, where |g| >= 1e-5")
     lr_bound = 2 * 1e-4 * P13_STEPS
-    drift = {k: max((pn - pr).abs().max().item() for pn, pr in zip(ranks[0]["params"], ref))
-             for k, ref in (("split", split_params), ("one", one["params"]))}
+    drift = {k: max((pn - pr).abs().max().item() for pn, pr in zip(ranks[0]["params"][-1], ref))
+             for k, ref in (("split", split_params), ("one", one["params"][-1]))}
     for k, label in (("split", "the ranks' function computed in one process"),
                      ("one", "the 1-process run")):
         if not drift[k] <= lr_bound:
             missed.append(f"a parameter after {P13_STEPS} steps differs by {drift[k]:.3g} > "
                           f"{lr_bound:.3g} (2 lr a step) from {label}")
+    missed += hold_each_step(torch, np, "P13", names, ranks[0], chain, cuda0)
     top = sorted(floor, key=floor.get, reverse=True)[:3]
     log(f"P13 (LG-SPAIR config #5, global B=256, {RANKS} processes on one card, 128 rows each, "
         f"render noise 0.01): losses " + ", ".join(f"{v:.4f}" for v in losses)
@@ -1772,18 +1927,207 @@ def run_p13(torch, np, render, crop, windowed):
         f"{max(gap_one.values()):.3g}; the halves' mean to the 1-process gradient (float32's "
         f"split of the sum, no transport): " + ", ".join(f"{n} {floor[n]:.3g}" for n in top))
     for r, res in enumerate(ranks):
+        reduce_ms = res["reduce"][0]
         log(f"P13 rank {r}: backend {res['backend']}; launches in {P13_STEPS} steps "
             f"{res['launches']}")
         log(f"P13 rank {r}: step {res['step_s'] * 1e3:.3f} ms (mean of steps 2-{P13_STEPS}, host "
-            f"clock, synchronized); all-reduce {res['reduce_ms']:.3f} ms a step (CUDA events), "
-            f"{res['reduce_ms'] / (res['step_s'] * 1e3):.1%} of the step; peak device memory "
+            f"clock, synchronized); all-reduce {reduce_ms:.3f} ms a step (CUDA events), "
+            f"{reduce_ms / (res['step_s'] * 1e3):.1%} of the step; peak device memory "
             f"{res['peak_gib']:.3f} GiB")
     log(f"P13 one process (the reference): step {one['step_s'] * 1e3:.3f} ms, peak device memory "
         f"{one['peak_gib']:.3f} GiB; the {RANKS} processes took {spawned_s:.1f} s from start to "
         f"exit (gloo on one card is a correctness path, not a scaling number)")
     if missed:
         fail("P13: " + "; ".join(missed))
+    one["rank_peak_gib"] = ranks[0]["peak_gib"]
+    return {k: sum(res["launches"][k] for res in ranks) for k in KERNELS}, one, chain
+
+
+# The weights the JAX rule shards at config #5 over 2 model ranks
+# (split_vae_tpu/parallel/mesh.py:181-188): 31,670,272 of 32,073,267 parameters.
+P15_SHARDED = sorted([
+    "bg_encoder.Dense_0.weight", "bg_encoder.Dense_1.weight",
+    "x_hat_encoder.Dense_0.weight", "x_hat_encoder.Dense_1.weight",
+    "bg_decoder.Dense_1.weight", "bg_decoder.Dense_2.weight",
+    "x_hat_decoder.Dense_1.weight", "x_hat_decoder.Dense_2.weight",
+    "encoder.obj_encoder.Dense_0.weight", "decoder.ObjDecoder_0.Dense_1.weight",
+    "encoder.conv2.weight", "encoder.conv3.weight",
+])
+P15_GRID = (2, 2)  # data x model
+
+
+def run_p15(torch, np, render, crop, windowed, one, chain):
+    """P15: tensor parallelism. P13's configuration, seed and batches (config
+    #5, global B=256) in 4 processes on the one card over gloo, a grid of 2
+    data x 2 model (128 rows a data index), the JAX rule's 12 weights sharded,
+    held against the 2 x 2 function computed in this process (the data
+    halves, and the sharded weights by blocks, ``compute_by_blocks``), at
+    every step also from the ranks' own state, and against P13's references
+    (the same steps in one process, ``one``; the data halves with whole
+    weights, ``chain``) at the losses and 2 lr a step; the gaps to those
+    logged. Returns the ranks' launches summed."""
+    import tempfile
+
+    world = P15_GRID[0] * P15_GRID[1]
+    cuda0 = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as out:
+        t0 = time.perf_counter()
+        spawn_ranks("p13_rank", world, (out, P15_GRID[1]), timeout=600)
+        spawned_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"p13_rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    missed = []
+    names = one["names"]
+    for r, res in enumerate(ranks):
+        if res["grid"] != divmod(r, P15_GRID[1]):
+            missed.append(f"rank {r} sits at (data, model) {res['grid']}")
+        if sorted(res["sharded"]) != P15_SHARDED:
+            missed.append(f"rank {r} sharded {res['sharded']}, not the JAX rule's 12 weights")
+        if res["notfinite"] or not np.isfinite(res["losses"]).all():
+            missed.append(f"rank {r}: losses {res['losses']}, {res['notfinite']} skipped updates")
+        for kernel, n in res["launches"].items():
+            if n != (0 if kernel.startswith("render_windowed") else P13_STEPS):
+                missed.append(f"rank {r} launched {kernel} {n} times in {P13_STEPS} steps")
+    unequal = []
+    for m in range(P15_GRID[1]):  # the ranks of one model index: bit-equal blocks
+        group = ranks[m::P15_GRID[1]]
+        unequal += [f"{name} (model index {m})" for name, *blocks in
+                    zip(names, *(res["blocks"] for res in group))
+                    if not all(torch.equal(blocks[0], b) for b in blocks[1:])]
+    if unequal:
+        missed.append(f"the ranks of a model index differ after the steps: {unequal[:5]}")
+    # The replicated leaves: bit-equal on every rank (their gradients' mean
+    # over the world, train/steps.py's reduce_gradients_).
+    apart = [n for i, n in enumerate(names) if n not in P15_SHARDED
+             and not all(torch.equal(ranks[0]["blocks"][i], res["blocks"][i]) for res in ranks)]
+    if apart:
+        missed.append(f"the ranks' replicated leaves differ after the steps: {apart[:5]}")
+    data_losses = [ranks[d * P15_GRID[1]]["losses"] for d in range(P15_GRID[0])]
+    losses = [sum(ls[i] for ls in data_losses) / P15_GRID[0] for i in range(P13_STEPS)]
+    for i, (got, want) in enumerate(zip(losses, one["losses"])):
+        rtol = 1e-5 if i == 0 else 1e-4
+        if not abs(got - want) <= rtol * abs(want):
+            missed.append(f"step {i + 1}'s loss, the data indices' mean {got}, is not the "
+                          f"1-process {want} (rtol {rtol})")
+    # The references: the 2 x 2 ranks' function computed in this process (the
+    # data halves as P13's chain, the sharded weights by blocks: a block's
+    # product sums in the order the rank's does), held at P13's tolerances;
+    # beside it P13's chain (the data halves, whole weights) and the
+    # 1-process run, whose products over whole weights sum in another order.
+    rec = ranks[0]
+    grid_chain = p13_emulated(torch, np, cuda0, blocks=P15_SHARDED)
+    gaps = {n: norm_gap(g, e) for n, g, e in zip(names, rec["grads"][0], grid_chain["grads"][0])}
+    worst = max(gaps, key=gaps.get)
+    if not gaps[worst] <= 1e-5:
+        missed.append(f"the first step's gathered gradient of {worst} lies {gaps[worst]:.3g} of "
+                      f"its norm from the 2 x 2 function computed here (> 1e-5)")
+    beside = {key: max(norm_gap(g, e) for g, e in zip(rec["grads"][0], ref["grads"][0]))
+              for key, ref in (("whole", chain), ("one", one))}
+    adam = {key: adam_gap(torch, names, rec["params"][0], ref["params"][0], ref["grads"][0])
+            for key, ref in (("grid", grid_chain), ("whole", chain), ("one", one))}
+    if not adam["grid"][0] <= 1e-5:
+        missed.append(f"{adam['grid'][1]} after the first step differs by {adam['grid'][0]:.3g} "
+                      f"> 1e-5 from the 2 x 2 function computed here, where |g| >= 1e-5")
+    lr_bound = 2 * 1e-4 * P13_STEPS
+    drift = {k: max((pn - pr).abs().max().item() for pn, pr in zip(rec["params"][-1], ref))
+             for k, ref in (("grid", grid_chain["params"][-1]), ("whole", chain["params"][-1]),
+                            ("one", one["params"][-1]))}
+    for k, v in drift.items():
+        if not v <= lr_bound:
+            missed.append(f"a parameter after {P13_STEPS} steps differs by {v:.3g} > "
+                          f"{lr_bound:.3g} (2 lr a step) from {k}")
+    missed += hold_each_step(torch, np, "P15", names, rec, grid_chain, cuda0, blocks=P15_SHARDED)
+    card = card_line()
+    log(f"P15 (LG-SPAIR config #5, global B=256, {P15_GRID[0]} data x {P15_GRID[1]} model in "
+        f"{world} processes on one card over gloo, 128 rows a data index, render noise 0.01; "
+        f"{card}): {len(rec['sharded'])} weights sharded, {rec['params_a_rank']:,} parameters a "
+        f"rank of {sum(p.numel() for p in one['params'][0]):,}; losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + " (the data indices' mean) against "
+        + ", ".join(f"{v:.4f}" for v in one["losses"]) + " in one process; the ranks of a model "
+        "index " + ("bit-equal" if not unequal else f"unequal in {len(unequal)} tensors")
+        + "; the replicated leaves " + ("bit-equal on every rank" if not apart else
+                                        f"unequal in {len(apart)} tensors") + "; the first "
+        f"step's gathered gradients within {gaps[worst]:.3g} of a norm ({worst}) of the 2 x 2 "
+        f"function computed in one process (held), {beside['whole']:.3g} of the data halves' "
+        f"with whole weights and {beside['one']:.3g} of the 1-process run's; after the first "
+        f"step, where |g| >= 1e-5, within {adam['grid'][0]:.3g} ({adam['grid'][1]}) of the 2 x 2 "
+        f"function (held), {adam['whole'][0]:.3g} ({adam['whole'][1]}) of the data halves' and "
+        f"{adam['one'][0]:.3g} ({adam['one'][1]}) of the 1-process run; after {P13_STEPS} steps "
+        f"within {drift['grid']:.3g}, {drift['whole']:.3g} and {drift['one']:.3g} of the three on "
+        "every element")
+    for r, res in enumerate(ranks):
+        step_ms = res["step_s"] * 1e3
+        (g_ms, g_mb), (m_ms, m_mb), (d_ms, d_mb) = res["gather"], res["model_reduce"], res["reduce"]
+        log(f"P15 rank {r} (data {res['grid'][0]}, model {res['grid'][1]}; {card}): step "
+            f"{step_ms:.3f} ms (mean of steps 2-{P13_STEPS}, host clock, synchronized); a step "
+            f"(CUDA events) all-gathers {g_mb:.2f} MB of the sharded layers' outputs in "
+            f"{g_ms:.3f} ms ({g_ms / step_ms:.1%}), all-reduces {m_mb:.2f} MB of their inputs' "
+            f"gradients over the model group in {m_ms:.3f} ms ({m_ms / step_ms:.1%}) and "
+            f"{d_mb:.2f} MB of gradients over the data group in {d_ms:.3f} ms "
+            f"({d_ms / step_ms:.1%}); peak device memory {res['peak_gib']:.3f} GiB (a P13 rank: "
+            f"{one['rank_peak_gib']:.3f} GiB); launches {res['launches']}")
+    log(f"P15: the {world} processes took {spawned_s:.1f} s from start to exit (gloo on one card "
+        f"is a correctness path, not a scaling number)")
+    if missed:
+        fail("P15: " + "; ".join(missed))
     return {k: sum(res["launches"][k] for res in ranks) for k in KERNELS}
+
+
+P15_CLI_STEPS = 20
+
+
+def p15_cli_rank(rank, world, port, tmp, out):
+    """A process of P15's CLI run: spair_main at config #5's flags with
+    --num_model_shards 2 on NCCL, one card a process."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from split_vae_torch.cli import spair_main
+
+    torch.cuda.set_device(rank)
+    os.chdir(tmp)
+    spair_main.main(CONFIG5_ARGV + [
+        "-synthetic_data", "--batch_size", "256", "--training_steps", str(P15_CLI_STEPS),
+        "--eval_interval", str(P15_CLI_STEPS), "--checkpoint_interval", str(P15_CLI_STEPS),
+        "--log_every", "10", "--num_model_shards", "2", "--data_dir", tmp,
+        "--output_dir", os.path.join(tmp, "output"), "--coordinator", f"127.0.0.1:{port}",
+        "--num_processes", str(world), "--process_id", str(rank)])
+    torch.save({"backend": dist.get_backend(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30},
+               os.path.join(out, f"p15_cli_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_p15_cli(torch, np):
+    """spair_main with --num_model_shards 2 over NCCL on 2 cards, where the
+    machine has them; else a line that says where the CLI's tensor
+    parallelism is held."""
+    import tempfile
+
+    if torch.cuda.device_count() < 2:
+        log("P15 CLI: one card, so spair_main --num_model_shards 2 over NCCL does not run here; "
+            "the CLI's tensor parallelism is held by the CPU tests "
+            "(tests/test_torch_tensor_parallel.py: vae_main in 2 gloo processes)")
+        return
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks("p15_cli_rank", 2, (tmp, tmp), timeout=900)
+        spawned_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"p15_cli_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        (run,) = os.listdir(os.path.join(tmp, "output"))
+        records = check_cli_run(np, "P15 CLI", tmp, run, [P15_CLI_STEPS],
+                                ("train/", "test0/", "test1/"))
+    if any(res["backend"] != "nccl" for res in ranks):
+        fail(f"P15 CLI: backends {[res['backend'] for res in ranks]}")
+    (train,) = [r for r in records if "train/total_loss" in r]
+    log(f"P15 CLI (spair_main, config #5, --num_model_shards 2, NCCL on 2 cards; "
+        f"{card_line()}): train/total_loss {train['train/total_loss']:.4f} at step "
+        f"{P15_CLI_STEPS}, train/imgs_per_sec {train['train/imgs_per_sec']:.1f}; peak device "
+        f"memory " + ", ".join(f"{res['peak_gib']:.3f}" for res in ranks) + f" GiB; "
+        f"{spawned_s:.1f} s from start to exit")
 
 
 P14_STEPS = 20
@@ -1810,7 +2154,7 @@ def p14_rank(rank, world, port, tmp, out):
     torch.cuda.set_device(device)
     os.chdir(tmp)
     spans = []
-    undo = timed_reduce(torch, spans)
+    undo = timed_collectives(torch, spans)
     reset_launches(render, crop, windowed)
     try:
         vae_main.main(CONFIG2_ARGV + [
@@ -1822,7 +2166,7 @@ def p14_rank(rank, world, port, tmp, out):
     finally:
         undo()
     launches = read_launches(render, crop, windowed)
-    reduce_ms = [s.elapsed_time(e) for s, e in spans]
+    reduce_ms = [s.elapsed_time(e) for kind, _, s, e in spans if kind == "reduce"]
     explicit = None
     if world == 1:
         model, _ = build_vae_model(config2(), CONFIG2_IMAGE_HW, device=device)
@@ -2166,10 +2510,16 @@ def main() -> None:
     check_probe_records("P9 gmvae", records, ())
     launches["P9"] = {k: launches["P9"][k] + p9[k] + p9_gm[k] for k in KERNELS}
     torch.cuda.empty_cache()
-    # Data parallelism: config #5 in 2 processes on the card, config #2 on NCCL.
-    launches["P13"] = run_p13(torch, np, render, crop, windowed)
+    # Data parallelism: config #5 in 2 processes on the card, config #2 on NCCL;
+    # tensor parallelism: config #5 in a 2 x 2 grid on the card, held to P13's
+    # references.
+    launches["P13"], one, chain = run_p13(torch, np, render, crop, windowed)
+    torch.cuda.empty_cache()
+    launches["P15"] = run_p15(torch, np, render, crop, windowed, one, chain)
+    del one, chain
     torch.cuda.empty_cache()
     launches["P14"] = run_p14(torch, np)
+    run_p15_cli(torch, np)
 
     # Phase 6: the record.
     pallas, research = "split_vae_tpu/ops/pallas/", "tools/pallas_research/"

@@ -11,6 +11,13 @@ device type matches (a CUDA generator's state is not a CPU generator's).
 The JAX package writes flax msgpack (``.msgpack``); ``load_weights`` reads
 such a weights file into a port model through ``interop/flax_msgpack.py`` and
 ``interop/flax_params.py``.
+
+Under tensor parallelism (``parallel/mesh.py::shard_state``) a checkpoint is
+still the 1-rank file: ``save_checkpoint`` and ``save_weights`` all-gather the
+sharded parameters and their moments over the model group first (every rank
+of rank 0's model group calls them; rank 0 writes), and a restore reads the
+whole file into the unsharded state, which ``shard_state`` then cuts.
+``load_weights`` cuts a sharded model's blocks from the whole file.
 """
 
 from __future__ import annotations
@@ -26,21 +33,35 @@ from split_vae_torch.core.state import TrainState
 from split_vae_torch.core.state import tree_tensors as _leaves
 from split_vae_torch.interop.flax_msgpack import load as load_msgpack
 from split_vae_torch.interop.flax_params import load_flax_params
+from split_vae_torch.parallel.mesh import (
+    Mesh,
+    gather_opt_state,
+    gather_state_dict,
+    is_main,
+    load_full_state_dict_,
+)
 
 _CKPT_RE = re.compile(r"checkpoint_(\d+)\.pt$")
 
 
 def _cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return {k: v.detach().cpu() for k, v in gather_state_dict(model).items()}
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 3) -> str:
-    """Serialize the full state; retain only the newest ``keep`` checkpoints."""
+def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 3,
+                    mesh: Mesh = Mesh()) -> Optional[str]:
+    """Serialize the full state; retain only the newest ``keep`` checkpoints.
+    With sharded parameters, a collective of the model group; rank 0 of
+    ``mesh`` writes and returns the path, the other ranks None."""
+    model_state = _cpu_state_dict(state.model)
+    opt_state = [t.detach().cpu() for t in _leaves(gather_opt_state(state))]
+    if not is_main(mesh):
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "step": int(state.step),
-        "model": _cpu_state_dict(state.model),
-        "opt_state": [t.detach().cpu() for t in _leaves(state.opt_state)],
+        "model": model_state,
+        "opt_state": opt_state,
         "generator": state.generator.get_state(),
         "generator_device": state.generator.device.type,
     }
@@ -100,10 +121,14 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     return state
 
 
-def save_weights(path: str, model: nn.Module) -> None:
-    """Weights-only export (reference parity: model.save_weights .h5)."""
+def save_weights(path: str, model: nn.Module, mesh: Mesh = Mesh()) -> None:
+    """Weights-only export (reference parity: model.save_weights .h5); as
+    ``save_checkpoint``, the 1-rank tensors, written by rank 0."""
+    weights = _cpu_state_dict(model)
+    if not is_main(mesh):
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(_cpu_state_dict(model), path)
+    torch.save(weights, path)
 
 
 def load_weights(path: str, model: nn.Module) -> nn.Module:
@@ -111,5 +136,4 @@ def load_weights(path: str, model: nn.Module) -> nn.Module:
     ``.msgpack`` that the JAX package's ``save_weights`` wrote."""
     if path.endswith(".msgpack"):
         return load_flax_params(model, load_msgpack(path))
-    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
-    return model
+    return load_full_state_dict_(model, torch.load(path, map_location="cpu", weights_only=True))

@@ -8,7 +8,9 @@ with one stack a key and one device-to-host copy, so an interval of a
 thousand steps costs one sync. Under data parallelism (``mesh``) ``result``
 also takes the ranks' mean of the means, one all-reduce an interval: every
 rank's steps hold equal shares of the global batch, so rank 0's ``train/``
-records are the global batch's, as in the JAX package.
+records are the global batch's, as in the JAX package. The mean runs over
+the data group (``parallel/mesh.py::all_reduce_mean_values``): the ranks of
+a model group hold equal values already.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ from split_vae_torch.parallel.mesh import Mesh, all_reduce_mean_values
 
 class MeanMetrics:
     """Running mean per key; takes 0-d tensors (on any one device) or host numbers.
-    With a ``mesh`` of more than one rank, ``result`` is a collective: every
-    rank calls it at the same point, with the same keys."""
+    With a ``mesh`` whose data group holds more than one rank, ``result`` is
+    a collective of that group: every rank calls it at the same point, with
+    the same keys."""
 
     def __init__(self, mesh: Mesh = Mesh()):
         self.mesh = mesh

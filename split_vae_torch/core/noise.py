@@ -6,8 +6,10 @@ replayed from a list (the tests replay what the JAX package drew). The JAX
 package draws from named streams ('sample', 'dropout'); the port has one,
 and each model's docstring states where its dropout keep masks fall in it.
 
-Data parallelism (``parallel/mesh.py``): a rank of ``world`` holds the rows
-[rank*b, (rank+1)*b) of the global batch. Each draw says whether it is
+Data parallelism (``parallel/mesh.py``): data index ``rank`` of ``world``
+(the mesh's data index and data size; every rank of a model group holds the
+same rows and so draws the same noise) holds the rows [rank*b, (rank+1)*b)
+of the global batch. Each draw says whether it is
 ``per_example`` (its leading dimension is this rank's batch, or batch-major
 rows of it such as B*K cells): such a draw is taken at the global shape,
 world times the leading dimension, and the rank keeps its block of rows, so
@@ -31,7 +33,7 @@ class Noise:
     unless a check runs a model in float64); a draw may ask for its own, as the
     JAX package draws a sample in the dtype of the tensor it perturbs (bfloat16
     under ``--compute_dtype bfloat16``). ``rank`` and ``world`` place this
-    process's rows in the global batch."""
+    process's rows in the global batch: the mesh's data index and data size."""
 
     def __init__(self, generator: torch.Generator,
                  replay: Optional[Iterable[torch.Tensor]] = None,
@@ -109,7 +111,7 @@ class Noise:
 
     def image_seed(self, batch: int) -> torch.Tensor:
         """The render kernels' seed for this rank's ``batch`` images: ``seed()``
-        plus rank*batch, wrapped to int32 as the kernels add in uint32. The
+        plus rank*batch (the data index's), wrapped to int32 as the kernels add in uint32. The
         kernels key image i's field by seed + i, so the ranks' fields together
         are the 1-rank field of the global batch (the JAX package's
         ``_call_render_spmd``: shard j seeds with seed + j*local_b)."""

@@ -17,7 +17,9 @@ and ``var`` are the buffers ``running_mean`` and ``running_var``;
 Both directions take and give plain numpy arrays on the flax side, so nothing
 here needs JAX: a tree read from a checkpoint, or handed over by a test, is
 nested dicts of arrays. A leaf that finds no counterpart, on either side, or
-whose shape disagrees, raises.
+whose shape disagrees, raises. A tensor-parallel model
+(``parallel/mesh.py::shard_state``) takes the whole tree, and each sharded
+weight keeps its block.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from split_vae_torch.parallel.mesh import full_shapes, load_full_state_dict_
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -68,8 +72,9 @@ def _is_variables(tree: Mapping) -> bool:
 
 def flax_to_state_dict(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
     """The flax tree (params, or a {"params", "batch_stats"} variables tree)
-    as a state_dict for ``model`` (on its devices)."""
+    as a 1-rank state_dict for ``model`` (on its devices)."""
     target = model.state_dict()
+    shapes = full_shapes(model)
     if _is_variables(tree):
         parts = [(tree["params"], _PARAM_NAMES), (tree.get("batch_stats", {}), _STAT_NAMES)]
     else:
@@ -84,9 +89,9 @@ def flax_to_state_dict(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tenso
                                f"model")
             value = _to_torch_layout(leaf, kind)
             want = target[name]
-            if tuple(value.shape) != tuple(want.shape):
+            if tuple(value.shape) != shapes[name]:
                 raise ValueError(f"{'/'.join(path)}: shape {value.shape} maps to {name} "
-                                 f"of shape {tuple(want.shape)}")
+                                 f"of shape {shapes[name]}")
             out[name] = torch.tensor(value, device=want.device, dtype=want.dtype)
     missing = sorted(set(target) - set(out))
     if missing:
@@ -96,8 +101,7 @@ def flax_to_state_dict(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tenso
 
 def load_flax_params(model: nn.Module, tree: Mapping) -> nn.Module:
     """Copies the flax tree (params or variables) into ``model``; returns the model."""
-    model.load_state_dict(flax_to_state_dict(tree, model), strict=True)
-    return model
+    return load_full_state_dict_(model, flax_to_state_dict(tree, model))
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:

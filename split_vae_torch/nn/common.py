@@ -16,6 +16,11 @@
   (``promote_dtype``): the product is rounded to bfloat16, then the bias
   added in bfloat16, as flax adds it. The parameters stay float32 either
   way, so their gradients and the optimizer's state do too.
+- A Dense or Conv whose ``shard`` is set (``parallel/mesh.py::shard_state``)
+  holds one block of its weight's output rows and computes its block of the
+  output between the model group's collectives
+  (``parallel/tensor.py``); the bias is added after the gather, in the
+  compute dtype, as the bfloat16 form adds it.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from split_vae_torch.parallel.tensor import copy_to_model, gather_features
 
 
 def activation_dtype(name: str) -> Optional[torch.dtype]:
@@ -54,9 +61,15 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.full((out_features,), bias_init, device=device))
         self.bias_init = bias_init
         self.dtype = dtype
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.shard is not None:
+            x = copy_to_model(x, self.shard)
+            y = F.linear(x if dt is None else x.to(dt),
+                         self.weight if dt is None else self.weight.to(dt))
+            return gather_features(y, self.shard) + (self.bias if dt is None else self.bias.to(dt))
         if dt is None:
             return F.linear(x, self.weight, self.bias)
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
@@ -74,9 +87,12 @@ class Conv(nn.Module):
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.shard is not None:
+            x = copy_to_model(x, self.shard)
         xn = (x if dt is None else x.to(dt)).permute(0, 3, 1, 2)
         pad = 0
         if self.padding == "SAME":
@@ -87,6 +103,11 @@ class Conv(nn.Module):
                 pad = (t, l)
             else:
                 xn = F.pad(xn, (l, r, t, b))
+        if self.shard is not None:
+            y = F.conv2d(xn, self.weight if dt is None else self.weight.to(dt), None,
+                         stride=self.stride, padding=pad)
+            y = gather_features(y.permute(0, 2, 3, 1), self.shard)
+            return y + (self.bias if dt is None else self.bias.to(dt))
         if dt is None:
             y = F.conv2d(xn, self.weight, self.bias, stride=self.stride, padding=pad)
             return y.permute(0, 2, 3, 1)

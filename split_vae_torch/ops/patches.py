@@ -6,6 +6,9 @@
   applies it (the JAX package's one-hot matmul is a TPU choice).
 - ``mix_scramble`` scrambles each image with a patch size drawn from
   {1, 2, 4, 8}: all four scrambles, one chosen per image (patches.py:163-175).
+- ``patch_scramble`` and ``mix_scramble`` are the one-image forms
+  (patches.py:37-50, 89-94), a permutation of the patches from
+  ``Noise.permutation`` (and the size's index from ``Noise.randint``).
 - ``blur``: per image a sigma in [5, 10) and a half-width in {3..6}, a masked
   13-tap Gaussian, symmetric padding, separable depthwise conv
   (patches.py:97-136).
@@ -51,6 +54,29 @@ def batched_scramble(x: torch.Tensor, size: int, u: Optional[torch.Tensor] = Non
     return (shuffled.reshape(b, gh, gw, size, size, c)
             .permute(0, 1, 3, 2, 4, 5)
             .reshape(b, h, w, c))
+
+
+def _patches(x: torch.Tensor, size: int) -> torch.Tensor:
+    """The size x size patches of one image [H, W, C], row-major: [n, size, size, C]."""
+    h, w, c = x.shape
+    return (x.reshape(h // size, size, w // size, size, c).permute(0, 2, 1, 3, 4)
+            .reshape(-1, size, size, c))
+
+
+def patch_scramble(x: torch.Tensor, size: int, noise: Noise) -> torch.Tensor:
+    """The size x size patches of one image [H, W, C] in the order of a
+    permutation drawn from ``noise`` (augmentation.py:43-54)."""
+    h, w, c = x.shape
+    gh, gw = h // size, w // size
+    patches = _patches(x, size)[noise.permutation(gh * gw)]
+    return patches.reshape(gh, gw, size, size, c).permute(0, 2, 1, 3, 4).reshape(h, w, c)
+
+
+def mix_scramble(x: torch.Tensor, noise: Noise) -> torch.Tensor:
+    """One image scrambled with a patch size from MIX_SIZES: its index drawn
+    from ``noise``, then the permutation at that size."""
+    idx = int(noise.randint(len(MIX_SIZES), ()))
+    return patch_scramble(x, MIX_SIZES[idx], noise)
 
 
 def batched_mix_scramble(x: torch.Tensor, idx: torch.Tensor,

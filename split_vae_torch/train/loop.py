@@ -25,20 +25,25 @@ restarts after them, so ``train/imgs_per_sec`` leaves them out.
 parameters stay float32). The step's metrics stay on the device until an
 interval's ``result()``.
 
-Data parallelism, one process a GPU (``parallel/mesh.py``): ``--coordinator``
-with ``--num_processes`` and ``--process_id``, or torchrun's environment.
-``--batch_size`` is the global batch; every rank takes its rows of it and the
-N-rank run takes the 1-rank run's steps. Rank 0 makes the run directory (its
-name goes to the others), writes the records, the checkpoints and the final
-weights, and runs the test sweeps, the probe classifier and the PNGs; the
-other ranks wait at a barrier after each eval and each checkpoint. Every rank
-restores ``--resume`` and then takes rank 0's state. Not ported yet, and
-refused with the ROADMAP item that brings it: tensor parallelism
-(``--num_model_shards`` > 1, A8).
+Data and tensor parallelism, one process a GPU (``parallel/mesh.py``):
+``--coordinator`` with ``--num_processes`` and ``--process_id``, or torchrun's
+environment; the ranks form a grid of ``--num_data_shards`` (0: all that
+remain) x ``--num_model_shards``. ``--batch_size`` is the global batch; every
+data index takes its rows of it, and the run takes the 1-rank run's steps.
+Every rank builds the whole model, restores ``--resume``, takes rank 0's
+state and then keeps its blocks of the sharded weights (``shard_state``).
+Rank 0 makes the run directory (its name goes to the others), writes the
+records, the checkpoints and the final weights, and runs the test sweeps, the
+probe classifier and the PNGs; the other ranks wait at a barrier after each
+eval and each checkpoint. With sharded weights the evals run on a whole
+replica of the model on rank 0, refreshed from the blocks before each eval
+(``_EvalModel``), and the checkpoints hold the 1-rank tensors: both gather
+over rank 0's model group, whose ranks join those gathers.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, Optional, Tuple
 
@@ -64,16 +69,19 @@ from split_vae_torch.data.multicub import get_multicub
 from split_vae_torch.models.spair import LGGlimpseSPAIR, LGSPAIR, get_spair_model
 from split_vae_torch.models.vae import GMVae, LGGMVae, get_vae_model
 from split_vae_torch.parallel.mesh import (
-    TENSOR_PARALLEL,
     Mesh,
     barrier,
     broadcast_object,
     broadcast_state_,
     create_mesh,
+    gather_state_dict,
+    infer_param_sharding,
     is_main,
     local_rank,
     maybe_initialize_distributed,
+    model_reduce,
     rows,
+    shard_state,
 )
 from split_vae_torch.train import probes as probes_mod
 from split_vae_torch.train.optim import (
@@ -92,26 +100,29 @@ from split_vae_torch.viz import artifacts as viz
 from split_vae_torch.viz import spair_artifacts as sviz
 
 
-def build_vae_model(config, image_hw, device="cuda") -> Tuple[torch.nn.Module,
-                                                              GradientTransformation]:
+def build_vae_model(config, image_hw, device="cuda",
+                    mesh: Mesh = Mesh()) -> Tuple[torch.nn.Module, GradientTransformation]:
     """The model and its optimizer: Adam for LGVae, Adam with the staircase
-    decay for the GM families, each skipping non-finite updates."""
+    decay for the GM families, each skipping non-finite updates; on a mesh
+    with a model group, the optimizer of ``infer_param_sharding``'s shards."""
     if config.model == "lgvae":
-        tx = vae_optimizer(config.learning_rate)
+        optimizer = vae_optimizer
     elif config.model in ("lggmvae", "gmvae"):
-        tx = gm_optimizer(config.learning_rate)
+        optimizer = gm_optimizer
     else:
         raise NotImplementedError(config.model)
-    return get_vae_model(config, image_hw, device=device), tx
+    model = get_vae_model(config, image_hw, device=device)
+    return model, optimizer(config.learning_rate,
+                            model_reduce(mesh, model, infer_param_sharding(model, mesh)))
 
 
 def _train_iterator(train_ds: ArrayDataset, config, mesh: Mesh):
     """This rank's batches (split_vae_tpu/train/loop.py:68-96): the dataset
     resident on the device when it fits under DEVICE_RESIDENT_MAX_BYTES (no
-    host-device copy a step; each rank gathers its rows of the global batch),
-    else host batches streamed with prefetch, each process from its own
-    disjoint slice of the data when there are several (the JAX package's pod
-    path); ``-host_data`` forces the streaming path."""
+    host-device copy a step; each rank gathers its data index's rows of the
+    global batch), else host batches streamed with prefetch, each data index
+    from its own disjoint slice of the data when there are several (the JAX
+    package's pod path); ``-host_data`` forces the streaming path."""
     mine = rows(mesh, config.batch_size)  # raises unless the ranks' shares are equal
     nbytes = train_ds.images.nbytes + (
         train_ds.labels.nbytes if train_ds.labels is not None else 0)
@@ -119,22 +130,23 @@ def _train_iterator(train_ds: ArrayDataset, config, mesh: Mesh):
         return device_resident_batches(train_ds, config.batch_size, repeat=True,
                                        seed=config.seed, device=mesh.device, rows=mine)
     return device_prefetch(
-        iterate_batches(train_ds, config.batch_size // mesh.world, repeat=True, seed=config.seed,
-                        process_index=mesh.rank, process_count=mesh.world),
+        iterate_batches(train_ds, config.batch_size // mesh.data_size, repeat=True,
+                        seed=config.seed, process_index=mesh.data_rank,
+                        process_count=mesh.data_size),
         device=mesh.device)
 
 
 def _start(config) -> Mesh:
     """The device, the process group (before any collective) and this
-    process's mesh; refuses tensor parallelism; the debug mode."""
-    if config.num_model_shards > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
+    process's mesh; the debug mode."""
     device = setup_runtime(config.platform, local_rank(config.process_id))
     maybe_initialize_distributed(config.coordinator, config.num_processes, config.process_id,
                                  backend="nccl" if device.type == "cuda" else "gloo")
     mesh = create_mesh(config.num_data_shards, config.num_model_shards, device)
     if mesh.world > 1:
-        print(f"Rank {mesh.rank} of {mesh.world} ({mesh.backend}) on {device}")
+        print(f"Rank {mesh.rank} of {mesh.world} ({mesh.backend}) on {device}: data index "
+              f"{mesh.data_rank} of {mesh.data_size}, model index {mesh.model_rank} of "
+              f"{mesh.model_size}")
     if config.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     return mesh
@@ -160,21 +172,47 @@ def _rank0_first(load, mesh: Mesh):
 def _resume(config, state: TrainState, mesh: Mesh) -> None:
     """Every rank restores ``--resume``; then every rank holds rank 0's state
     (also without a resume: the ranks' models are built alike, and this makes
-    sure of it)."""
+    sure of it); then every rank keeps its blocks of the sharded weights."""
     if config.resume:
         ckpt.restore_checkpoint(config.resume, state)
         if is_main(mesh):
             print(f"Resumed from {config.resume} at step {state.step}")
     broadcast_state_(state, mesh)
+    names = infer_param_sharding(state.model, mesh)
+    shard_state(state, mesh, names)
+    if names and is_main(mesh):
+        print(f"Tensor parallelism over {mesh.model_size} ranks: {len(names)} weights sharded, "
+              f"{sum(p.numel() for p in state.params):,} parameters a rank")
+
+
+class _EvalModel:
+    """The model the evals, the probe and the PNGs run on, on rank 0 alone:
+    the trained model itself, or, when its weights are sharded, a whole
+    replica (a forward through a sharded layer on rank 0 alone would wait in
+    its first gather for the rest of the model group). ``sync`` copies the
+    gathered weights into the replica: a collective of rank 0's model group,
+    which every rank of it calls before each eval."""
+
+    def __init__(self, model: torch.nn.Module, mesh: Mesh):
+        self.mesh = mesh
+        self.replica = mesh.model_size > 1
+        self.model = copy.deepcopy(model) if self.replica and is_main(mesh) else model
+
+    def sync(self, state: TrainState) -> None:
+        if not self.replica or self.mesh.data_rank != 0:
+            return
+        weights = gather_state_dict(state.model)
+        if is_main(self.mesh):
+            self.model.load_state_dict(weights)
 
 
 def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir: str,
-           max_steps: Optional[int], mesh: Mesh,
+           max_steps: Optional[int], mesh: Mesh, eval_model: _EvalModel,
            meta: Optional[Dict[str, float]] = None) -> TrainState:
     """The JAX loop's schedule around ``train_step``; ``evaluate(step, logger,
     batch)`` runs the test sweeps and the PNGs (``batch`` is the last train
-    batch), on rank 0 alone; ``meta`` is logged first, under ``meta/``.
-    ``--profile_dir`` traces step 100 (rank 0's)."""
+    batch) on ``eval_model``, on rank 0 alone; ``meta`` is logged first,
+    under ``meta/``. ``--profile_dir`` traces step 100 (rank 0's)."""
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     main = is_main(mesh)
     train_metrics = MeanMetrics(mesh)
@@ -203,6 +241,7 @@ def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir:
                 tm = train_metrics.result()
                 tm["imgs_per_sec"] = rate
                 train_metrics.reset()
+                eval_model.sync(state)
                 if main:
                     logger.log(step, tm, prefix="train/")
                     evaluate(step, logger, batch)
@@ -210,13 +249,13 @@ def _train(config, state: TrainState, train_step, train_iter, evaluate, run_dir:
                 timer.reset()
             if (config.checkpoint_interval and step % config.checkpoint_interval == 0) \
                     or step == total_steps:
-                if main:
-                    ckpt.save_checkpoint(ckpt_dir, state)
+                if mesh.data_rank == 0:  # rank 0's model group gathers, rank 0 writes
+                    ckpt.save_checkpoint(ckpt_dir, state, mesh=mesh)
                 barrier(mesh)
 
-        if main:
+        if mesh.data_rank == 0:
             ckpt.save_weights(os.path.join("models", os.path.basename(run_dir) + ".pt"),
-                              state.model)
+                              state.model, mesh)
     finally:
         if logger is not None:
             logger.close()
@@ -232,10 +271,12 @@ def train_vae(config, max_steps: Optional[int] = None):
 
     train_ds, test_ds, input_shape = _rank0_first(lambda: get_vae_dataset(config), mesh)
     h, w = input_shape[1], input_shape[2]
-    model, tx = build_vae_model(config, (h, w), device)
+    model, tx = build_vae_model(config, (h, w), device, mesh)
     state = create_train_state(model, tx, seed=config.seed)
     print(f"Model {config.model}: {sum(p.numel() for p in model.parameters()):,} params")
+    eval_model = _EvalModel(model, mesh)
     _resume(config, state, mesh)
+    model = eval_model.model
 
     vae_step = make_vae_train_step(config, mesh)
     eval_step = make_vae_eval_step(config, model)
@@ -293,7 +334,7 @@ def train_vae(config, max_steps: Optional[int] = None):
 
     barrier(mesh)
     state = _train(config, state, train_step, _train_iterator(train_ds, config, mesh),
-                   evaluate, run_dir, max_steps, mesh, meta=meta)
+                   evaluate, run_dir, max_steps, mesh, eval_model, meta=meta)
     return state, run_dir
 
 
@@ -309,9 +350,13 @@ def train_spair(config, max_steps: Optional[int] = None):
 
     model = get_spair_model(config, device=device)
     # Keras Adam(clipnorm=1.0) clips per tensor, not globally (spair/main.py:109).
-    state = create_train_state(model, spair_optimizer(config.learning_rate), seed=config.seed)
+    tx = spair_optimizer(config.learning_rate,
+                         model_reduce(mesh, model, infer_param_sharding(model, mesh)))
+    state = create_train_state(model, tx, seed=config.seed)
     print(f"Model {config.model}: {sum(p.numel() for p in model.parameters()):,} params")
+    eval_model = _EvalModel(model, mesh)
     _resume(config, state, mesh)
+    model = eval_model.model
 
     eval_step = make_spair_eval_step(config, model)
     eval_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
@@ -342,7 +387,8 @@ def train_spair(config, max_steps: Optional[int] = None):
                 print(f"[viz] skipped: {type(e).__name__}: {e}")
 
     state = _train(config, state, make_spair_train_step(config, mesh=mesh),
-                   _train_iterator(train_ds, config, mesh), evaluate, run_dir, max_steps, mesh)
+                   _train_iterator(train_ds, config, mesh), evaluate, run_dir, max_steps, mesh,
+                   eval_model)
     return state, run_dir
 
 

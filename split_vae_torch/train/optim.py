@@ -23,11 +23,18 @@ the LGVae chain nan_robust(adam) with no clip (train/loop.py:55,65), the GM
 chain nan_robust(adam(gm_lr_schedule)) (train/loop.py:56-62), the probe
 classifier's adam(1e-4, amsgrad=True) (train/probes.py:171).
 The skip is a select on the device, so a step needs no sync.
+
+Tensor parallelism (``parallel/mesh.py::model_reduce``): where a gradient is
+this rank's block of a parameter's rows, the clip takes the parameter's norm
+(the blocks' squared norms summed over the model group) and the skip decides
+on the whole group's gradients (the finite flag AND-reduced over it), so the
+ranks of a group clip and skip alike. Without a ``ModelReduce`` the chains do
+no collective.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Union
+from typing import Callable, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -41,12 +48,24 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
-def clip_by_per_tensor_norm(max_norm: float) -> GradientTransformation:
+class ModelReduce(NamedTuple):
+    """A model group's reductions: ``norms(grads, norms)`` gives each
+    gradient's full L2 norm from this rank's ``norms`` of ``grads``;
+    ``all(flag)`` the AND of a 0-d bool over the group."""
+
+    norms: Callable
+    all: Callable
+
+
+def clip_by_per_tensor_norm(max_norm: float,
+                            model_reduce: Optional[ModelReduce] = None) -> GradientTransformation:
     def init(params):
         return ()
 
     def update(grads, state):
         norms = torch._foreach_norm(grads)
+        if model_reduce is not None:
+            norms = model_reduce.norms(grads, norms)
         return [g * (max_norm / torch.clamp_min(n, max_norm)) for g, n in zip(grads, norms)], state
 
     return GradientTransformation(init, update)
@@ -122,7 +141,8 @@ def _select(ok: torch.Tensor, new, old):
     return new
 
 
-def nan_robust(tx: GradientTransformation) -> GradientTransformation:
+def nan_robust(tx: GradientTransformation,
+               model_reduce: Optional[ModelReduce] = None) -> GradientTransformation:
     def init(params):
         return SkipNonFiniteState(torch.zeros((), dtype=torch.int32, device=params[0].device),
                                   tx.init(params))
@@ -130,6 +150,8 @@ def nan_robust(tx: GradientTransformation) -> GradientTransformation:
     def update(grads, state):
         inner_updates, inner_state = tx.update(grads, state.inner_state)
         finite = torch.stack([torch.isfinite(u).all() for u in list(grads) + inner_updates]).all()
+        if model_reduce is not None:
+            finite = model_reduce.all(finite)
         updates = [torch.where(finite, u, torch.zeros_like(u)) for u in inner_updates]
         inner = _select(finite, inner_state, state.inner_state)
         count = state.total_notfinite + (~finite).to(torch.int32)
@@ -138,20 +160,24 @@ def nan_robust(tx: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def spair_optimizer(learning_rate: float) -> GradientTransformation:
+def spair_optimizer(learning_rate: float,
+                    model_reduce: Optional[ModelReduce] = None) -> GradientTransformation:
     """Keras Adam(lr, clipnorm=1.0) as the JAX package trains SPAIR (train/loop.py:295-296)."""
-    return nan_robust(chain(clip_by_per_tensor_norm(1.0), adam(learning_rate)))
+    return nan_robust(chain(clip_by_per_tensor_norm(1.0, model_reduce), adam(learning_rate)),
+                      model_reduce)
 
 
-def vae_optimizer(learning_rate: float) -> GradientTransformation:
+def vae_optimizer(learning_rate: float,
+                  model_reduce: Optional[ModelReduce] = None) -> GradientTransformation:
     """Keras Adam(lr) as the JAX package trains LGVae (train/loop.py:55,65)."""
-    return nan_robust(adam(learning_rate))
+    return nan_robust(adam(learning_rate), model_reduce)
 
 
-def gm_optimizer(learning_rate: float) -> GradientTransformation:
+def gm_optimizer(learning_rate: float,
+                 model_reduce: Optional[ModelReduce] = None) -> GradientTransformation:
     """Keras Adam with the staircase decay, as the JAX package trains LGGMVae
     and GMVae (train/loop.py:56-62)."""
-    return nan_robust(adam(gm_lr_schedule(learning_rate)))
+    return nan_robust(adam(gm_lr_schedule(learning_rate)), model_reduce)
 
 
 def classifier_optimizer() -> GradientTransformation:

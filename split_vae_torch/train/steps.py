@@ -20,13 +20,19 @@ split_vae_tpu/train/steps.py:70-79), the port sets nothing: no float32
 matmul or convolution is left in its bfloat16 train steps (the crop and the
 render are its own kernels, the geometry and the losses elementwise).
 
-Data parallelism (``mesh``, ``parallel/mesh.py``): the train steps take this
-rank's rows of the global batch, draw the global batch's noise and keep
-their rows (``core/noise.py``), and reduce the gradients with one flat
-all-reduce before the optimizer sees them (XLA's psum over 'data'), so the
-clip, Adam and the non-finite skip take the same decision on every rank.
-Every loss is a mean over the batch, so the ranks' mean gradient is the
-global batch's. The eval steps run on one rank.
+Data and tensor parallelism (``mesh``, ``parallel/mesh.py``): the train
+steps take their data index's rows of the global batch, draw the global
+batch's noise and keep those rows (``core/noise.py``), and reduce the
+gradients with one flat all-reduce over the data group before the optimizer
+sees them (XLA's psum over 'data'), so the clip, Adam and the non-finite skip
+take the same decision on every rank of a data group. Every loss is a mean
+over the batch, so the data group's mean gradient is the global batch's. The
+ranks of a model group take the same rows and draws; their sharded layers
+gather their blocks in the forward (``parallel/tensor.py``), so the
+gradients of the replicated leaves are equal across the group up to the
+card's unreproducible sums, and their mean over the whole world makes them
+equal (``parallel/mesh.py::reduce_gradients_``). The eval steps run on one
+rank.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.core.state import TrainState
 from split_vae_torch.nn.common import activation_dtype
-from split_vae_torch.parallel.mesh import Mesh, all_reduce_mean_
+from split_vae_torch.parallel.mesh import Mesh, reduce_gradients_
 from split_vae_torch.ops.patches import augment_batch, augment_draws
 from split_vae_torch.train import losses
 from split_vae_torch.train.optim import notfinite_count
@@ -84,12 +90,12 @@ def check_compute_dtype(config, model) -> None:
 
 
 def _apply(state: TrainState, total: torch.Tensor, metrics, mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """Backward of ``total``, the ranks' mean of the gradients, the optimizer
-    update in place; the step's metrics (this rank's)."""
+    """Backward of ``total``, the data group's mean of the gradients, the
+    optimizer update in place; the step's metrics (this rank's)."""
     params = state.params
     grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    all_reduce_mean_(grads, mesh)
+    reduce_gradients_(grads, state.model, mesh)
     state.apply_gradients(grads)
     metrics = {k: v.detach() for k, v in metrics.items()}
     cnt = notfinite_count(state.opt_state)
@@ -126,7 +132,7 @@ def make_vae_train_step(config, mesh: Mesh = Mesh()) -> Callable:
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         check_compute_dtype(config, state.model)
-        noise = Noise(state.generator, replay, rank=mesh.rank, world=mesh.world)
+        noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
         images = augment(config, normalize_images(batch, "tanh"), noise)
         total, metrics = loss_of(state.model(images, True, noise), images)
         return state, _apply(state, total, metrics, mesh)
@@ -171,7 +177,7 @@ def make_spair_train_step(config, windowed_render: bool = False,
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         check_compute_dtype(config, state.model)
-        noise = Noise(state.generator, replay, rank=mesh.rank, world=mesh.world)
+        noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
         images = model_inputs(config, normalize_images(batch, "unit"), noise)
         out = state.model(images, True, noise, windowed=windowed_render)
         total, metrics = losses.spair_loss(out, images, config, state.step, training=True)

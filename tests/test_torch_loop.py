@@ -140,17 +140,17 @@ def test_train_vae_schedule_checkpoints_and_resume(capsys, host_data):
     (["--num_processes", "2", "-no_label"], "A8"),
 ])
 def test_unported_options_raise(extra, item, monkeypatch):
-    """Tensor parallelism is not ported: NotImplementedError, naming its ROADMAP
-    item. Data parallelism is (tests/test_torch_parallel.py); a request of it
-    that this one process cannot meet (a data count other than its world of
-    1, or 2 processes with neither --coordinator nor torchrun's address) is
-    refused with a ValueError naming the same item."""
+    """Data and tensor parallelism are ported (tests/test_torch_parallel.py,
+    tests/test_torch_tensor_parallel.py); a request of them that this one
+    process cannot meet (a model count that does not divide its world of 1,
+    a data count other than that world, or 2 processes with neither
+    --coordinator nor torchrun's address) is refused with a ValueError naming
+    their ROADMAP item."""
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
     argv = ["--platform", "cpu", "-synthetic_data", "--synthetic_size", "8",
             "--training_steps", "1", "--global_latent_dims", "4", "--local_latent_dims", "4"]
-    error = NotImplementedError if "--num_model_shards" in extra else ValueError
-    with pytest.raises(error, match=item):
+    with pytest.raises(ValueError, match=item):
         loop.train_vae(parse_vae_args(argv + extra))
 
 

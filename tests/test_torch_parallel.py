@@ -5,8 +5,9 @@ the single-device step. Here an N-rank step of the port at a global batch
 equals its 1-rank step at that batch, the noise drawn and not replayed:
 
 - the mesh rules: no process group unless more than one process is asked
-  for, a failure to initialize propagates, tensor parallelism and a data
-  count other than the world are refused, each rank's rows;
+  for, a failure to initialize propagates, a model count that does not
+  divide the world and a data count other than the world are refused, each
+  rank's rows;
 - the draws: a per-example draw of each rank is its rows of the 1-rank draw;
   a shared one is the 1-rank draw; replayed draws are sliced alike;
 - the data: the per-process slices of ``iterate_batches`` are the JAX
@@ -24,7 +25,9 @@ equals its 1-rank step at that batch, the noise drawn and not replayed:
   from another seed, so the step also holds ``broadcast_state_``;
 - ``vae_main`` in 2 processes through ``--coordinator``, ``--num_processes``
   and ``--process_id`` (4 steps, an eval and a checkpoint at step 2) against
-  the 1-process run: one run directory, rank 0's records, the checkpoint, and
+  the 1-process run: one run directory, rank 0's records, the checkpoint
+  (each tensor's displacement from the seeded initialization and Adam's
+  moments in the L2 norm, which a wrong gradient at any step moves), and
   ``--resume`` from step 2.
 
 The children run in processes of their own (``spawn_ranks``): one torch
@@ -310,15 +313,39 @@ def hold_records(got, want):
 # gradients move the parameters, and the recon loss, a sum over 12,288
 # pixels, turns that into gradient differences).
 OPT_ATOL = {2: 1e-4, 4: 1e-2}
+# The same in the L2 norm of each tensor, which an element flipped by Adam
+# near eps moves little and a wrong gradient at any step moves by its whole
+# share: the parameters' displacement from the seeded initialization, ||(p2
+# - p0) - (p1 - p0)|| / ||p1 - p0||, read at most 6.2e-6 after 2 steps and
+# 4.9e-4 after 4; Adam's moments, ||m2 - m1|| / ||m1||, 1.8e-5 and 1.7e-3.
+DISPLACEMENT_RTOL = {2: 1e-4, 4: 5e-3}
+MOMENT_RTOL = {2: 2e-4, 4: 1e-2}
 
 
-def hold_checkpoints(got, want, steps):
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def hold_checkpoints(got, want, steps, argv=None):
     """The step; the parameters after ``steps`` Adam updates within steps *
     lr (an update moves a parameter by about lr at most, which a near-zero
     gradient's reduction order can flip; see the module docstring); the
-    optimizer state at OPT_ATOL[steps] of each tensor's largest magnitude."""
+    optimizer state at OPT_ATOL[steps] of each tensor's largest magnitude;
+    each tensor's displacement from the initialization of ``argv`` (the
+    CLI's seeded build) at DISPLACEMENT_RTOL[steps] and the moments at
+    MOMENT_RTOL[steps], in the L2 norm."""
+    from split_vae_torch.train.loop import build_vae_model
+
     g, w = (torch.load(p, weights_only=True) for p in (got, want))
     assert g["step"] == w["step"] == steps
+    init, _ = build_vae_model(parse_vae_args(argv or CLI_ARGV), (64, 64), "cpu")
+    for name, p0 in init.state_dict().items():
+        gap = rel_l2(g["model"][name] - p0, w["model"][name] - p0)
+        assert gap <= DISPLACEMENT_RTOL[steps], f"{name}: displacement {gap:.3g} apart"
+    for i, (a, b) in enumerate(zip(g["opt_state"], w["opt_state"])):
+        if b.dim():
+            assert rel_l2(a, b) <= MOMENT_RTOL[steps], f"optimizer tensor {i}: {rel_l2(a, b):.3g}"
     for name in w["model"]:
         np.testing.assert_allclose(g["model"][name].numpy(), w["model"][name].numpy(), rtol=0,
                                    atol=steps * 1e-4, err_msg=name)
@@ -389,7 +416,7 @@ def test_maybe_initialize_distributed_propagates_real_failures(monkeypatch, no_t
 def test_create_mesh_rules(no_torchrun_env):
     assert mesh_mod.create_mesh(device="cpu") == Mesh(0, 1, 0, torch.device("cpu"), None)
     assert mesh_mod.create_mesh(num_data=1, device="cpu").world == 1
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="A8"):  # 2 model ranks in a world of 1
         mesh_mod.create_mesh(num_model=2)
     with pytest.raises(ValueError, match="world size, 1"):
         mesh_mod.create_mesh(num_data=2)
