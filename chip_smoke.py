@@ -115,7 +115,19 @@ Phases, each of which must pass:
      timed rate; P8 as P5, with every launch count 0; P9's checks above;
      P10 and P11 as P1 and P5, their first losses within rtol 0.02 of P1's
      and P5's, the parameters and the optimizer's state float32 after the
-     steps (held on every path); P12 as P7 without the resume; P13: each
+     steps (held on every path); the resize2x -> conv fusion
+     (nn/pixel_shuffle.py, run_resize_conv): at every site of the main
+     paths (RESIZE_CONV_SITES: P1's ObjDecoder at 4096 x 8 -> 16 -> 32, also
+     by the dilated form; P3's ObjDecoder and GlimpseDecoder at 7 -> 14 ->
+     28; the BackgroundModel of P2/P3 at 6 -> 12 -> 24 -> 48; P5's
+     ConvDecoder.Conv_3, 32 -> 64, k 6) the fused form and its mixed form
+     against the chain, float32 and bfloat16, the output and the three
+     gradients (RESIZE_CONV_LIMITS; any miss fails), with each form's
+     forward+backward CUDA-event ms, launches, device conv ms and memory;
+     then P1, P3, P5, P10 and P11 in turns of the chain swapped into the
+     layers and the fused forms (chain, fused, fused, chain, twice): peak
+     device memory and the unprofiled step each turn, device conv ms and
+     launches a step from each side's first turn; P12 as P7 without the resume; P13: each
      process's draw from a CUDA generator of one seed bit-equal to this
      process's, the ranks' mean loss against the 1-process loss (rtol 1e-5
      at the first step, 1e-4 after), the first step's reduced gradients
@@ -154,6 +166,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import io
@@ -674,8 +687,10 @@ def kernel_family(name: str) -> str:
         return "render kernels (this port)"
     if "crop_" in low:
         return "crop kernels (this port)"
+    # cf32: the complex GEMM of cuDNN's FFT convolutions (the port runs no
+    # complex product of its own).
     if any(s in low for s in ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
-                              "winograd", "fft")):
+                              "winograd", "fft", "cf32")):
         return "convolutions (cuDNN)"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "matmul", "splitk")):
         return "matrix products (cuBLAS)"
@@ -1136,6 +1151,202 @@ def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
         fail(f"{name}: eval x_mean {tuple(out.x_mean.shape)}, images {tuple(images.shape)}")
     log(f"{name} eval: " + ", ".join(f"{k} {v:.4f}" for k, v in ev.items()))
     return launches, losses, rate
+
+
+# ---------------------------------------------------------------- resize2x -> conv
+
+# The fused resize2x -> conv sites of the main paths (nn/pixel_shuffle.py):
+# (label, fused form, batch, source side, Cin, Cout, kernel side). The SPAIR
+# object nets run at B*K = 256 * 16 objects.
+RESIZE_CONV_SITES = (
+    ("P1 ObjDecoder.Conv_1", "resize2x_conv", 4096, 8, 64, 32, 3),
+    ("P1 ObjDecoder.Conv_2", "resize2x_conv", 4096, 16, 32, 4, 3),
+    ("P1 ObjDecoder.Conv_1, dilated form", "resize2x_conv_any", 4096, 8, 64, 32, 3),
+    ("P1 ObjDecoder.Conv_2, dilated form", "resize2x_conv_any", 4096, 16, 32, 4, 3),
+    ("P3 ObjDecoder/GlimpseDecoder.Conv_1", "resize2x_conv", 4096, 7, 64, 32, 3),
+    ("P3 ObjDecoder.Conv_2", "resize2x_conv", 4096, 14, 32, 4, 3),
+    ("P3 GlimpseDecoder.Conv_2", "resize2x_conv", 4096, 14, 32, 3, 3),
+    ("P2/P3 BackgroundModel.Conv_4", "resize2x_conv", 256, 6, 128, 64, 3),
+    ("P2/P3 BackgroundModel.Conv_5", "resize2x_conv", 256, 12, 64, 32, 3),
+    ("P2/P3 BackgroundModel.Conv_6", "resize2x_conv", 256, 24, 32, 3, 3),
+    ("P5 ConvDecoder.Conv_3", "resize2x_conv_any", 64, 32, 32, 6, 6),
+)
+# Each tensor's largest gap to the chain, over its largest magnitude: float32
+# (TF32 off) sums the same products in another order; bfloat16 rounds other
+# intermediates (the chain its upsampled tensor and that tensor's gradient).
+RESIZE_CONV_LIMITS = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -5, 2 ** -5)}  # output, grads
+RESIZE_TURNS = ("chain", "fused", "fused", "chain") * 2
+
+
+@contextlib.contextmanager
+def chain_in_layers():
+    """The layers compute the chain (F.interpolate, then the conv) in place of
+    the fused forms while the block lasts: the "before" of the turns."""
+    from split_vae_torch.nn import pixel_shuffle
+
+    fused = pixel_shuffle.resize2x_conv, pixel_shuffle.resize2x_conv_any
+    pixel_shuffle.resize2x_conv = pixel_shuffle.resize2x_conv_any = \
+        pixel_shuffle.resize2x_conv_chain
+    try:
+        yield
+    finally:
+        pixel_shuffle.resize2x_conv, pixel_shuffle.resize2x_conv_any = fused
+
+
+def device_kernels(torch, fn):
+    """Launches of one call of fn and the device ms of its convolutions
+    (torch.profiler, ``kernel_family``), after one call outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    conv = [e for e in kernels if kernel_family(e.name) == "convolutions (cuDNN)"]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in conv) * 1e-3
+
+
+def resize_conv_sites(torch):
+    """The fused forms (and their mixed forms) against the chain on the card
+    at every production site, float32 and bfloat16, the output and the
+    gradients of x, the kernel and the bias (RESIZE_CONV_LIMITS); the
+    forward+backward's CUDA-event ms, launches, device conv ms and memory
+    above the inputs for the chain, the fused and the mixed form. Logs every
+    gap, then fails on any miss."""
+    from split_vae_torch.nn import pixel_shuffle as ps
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    misses = []
+    log("resize2x -> conv sites (nn/pixel_shuffle.py), the fused and mixed forms against the "
+        "chain on the card (each tensor's largest gap over its largest magnitude; fwd+bwd: "
+        "CUDA-event ms, launches, device conv ms of those, memory above the inputs):")
+    for label, form, b, s, cin, cout, k in RESIZE_CONV_SITES:
+        x = torch.randn(b, s, s, cin, device="cuda", generator=gen)
+        w = torch.randn(cout, cin, k, k, device="cuda", generator=gen) * (
+            2.0 / (k * k * (cin + cout))) ** 0.5
+        bias = torch.randn(cout, device="cuda", generator=gen) * 0.1
+        cot = torch.randn(b, 2 * s, 2 * s, cout, device="cuda", generator=gen)
+        forms = {"chain": ps.resize2x_conv_chain, "fused": getattr(ps, form),
+                 "mixed": getattr(ps, form + "_mixed")}
+        for dtype, (out_limit, grad_limit) in RESIZE_CONV_LIMITS.items():
+            ins = [t.detach().to(getattr(torch, dtype)).requires_grad_() for t in (x, w, bias)]
+            g_out = cot.to(ins[0].dtype)
+
+            def run(fn):
+                out = fn(*ins)
+                return [out.detach()] + list(torch.autograd.grad(out, ins, g_out))
+
+            ref = run(forms["chain"])
+            line = []
+            for name in ("fused", "mixed"):
+                gaps = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                        for g, r in zip(run(forms[name]), ref)]
+                line.append(f"{name} out {gaps[0]:.3g}, dx {gaps[1]:.3g}, dK {gaps[2]:.3g}, "
+                            f"db {gaps[3]:.3g}")
+                if not (gaps[0] <= out_limit and max(gaps[1:]) <= grad_limit):
+                    misses.append(f"{label} {dtype} {name}: {gaps}")
+            del ref
+            cost = []
+            for name, fn in forms.items():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                run(fn)
+                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                launches, conv_ms = device_kernels(torch, lambda: run(fn))
+                cost.append(f"{name} {cuda_ms(lambda: run(fn)):.4f} ms, {launches} launches, "
+                            f"conv {conv_ms:.4f} ms, {peak:.1f} MiB")
+            log(f"  {label} ({form}, x [{b},{s},{s},{cin}], Cout {cout}, k {k}) {dtype}: "
+                + "; ".join(line) + " | " + "; ".join(cost))
+            del ins, g_out
+        del x, w, bias, cot
+        torch.cuda.empty_cache()
+    if misses:
+        fail("resize2x -> conv against the chain on the card: " + "; ".join(misses))
+    log(f"resize2x -> conv sites: every form within {RESIZE_CONV_LIMITS} of the chain")
+
+
+def resize_conv_turns(torch, name, train_step, state, batches, batch_size):
+    """A main path in turns with the chain swapped into its layers and with
+    the fused forms (RESIZE_TURNS): each turn 2 warm-up steps, then the peak
+    device memory and the host clock over TRAIN_STEPS steps; each side's
+    first turn then profiles 3 steps (device conv ms and launches a step)."""
+    steps, peaks, profiled = {"chain": [], "fused": []}, {"chain": [], "fused": []}, {}
+    for side in RESIZE_TURNS:
+        with chain_in_layers() if side == "chain" else contextlib.nullcontext():
+            for i in range(WARMUP_STEPS):
+                state, _ = train_step(state, batches[i % 2])
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(TRAIN_STEPS):
+                state, metrics = train_step(state, batches[i % 2])
+            torch.cuda.synchronize()
+            steps[side].append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
+            peaks[side].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            if side not in profiled:
+                state, _, _, families, _ = profile_steps(torch, train_step, state, batches[0], 3)
+                conv_ms, conv_n = families.get("convolutions (cuDNN)", (0.0, 0))
+                profiled[side] = (conv_ms / 3 * 1e3, conv_n // 3,
+                                  sum(n for _, n in families.values()) // 3)
+        if not torch.isfinite(metrics["total_loss"]):
+            fail(f"{name} turns: non-finite loss with the {side}")
+    for side in steps:
+        conv_ms, conv_n, launches = profiled[side]
+        log(f"  {name} {side}: unprofiled step by turn "
+            + ", ".join(f"{v:.3f}" for v in steps[side]) + f" ms ({TRAIN_STEPS} steps a turn; median {statistics.median(steps[side]):.3f} ms, "
+            f"{batch_size / statistics.median(steps[side]) * 1e3:.1f} imgs/s), peak device memory "
+            + ", ".join(f"{v:.3f}" for v in peaks[side]) + f" GiB; profiled: device conv "
+            f"{conv_ms:.3f} ms in {conv_n} launches a step, {launches} launches a step")
+    wins = sum(f < c for c, f in zip(steps["chain"], steps["fused"]))
+    log(f"{name} turns, chain -> fused: median step {statistics.median(steps['chain']):.3f} -> "
+        f"{statistics.median(steps['fused']):.3f} ms (the fused side faster in {wins} of "
+        f"{len(steps['fused'])} pairs), peak {max(peaks['chain']):.3f} -> "
+        f"{max(peaks['fused']):.3f} GiB, conv {profiled['chain'][0]:.3f} -> "
+        f"{profiled['fused'][0]:.3f} ms, launches {profiled['chain'][2]} -> "
+        f"{profiled['fused'][2]} a step")
+
+
+def run_resize_conv(torch, np):
+    """The resize2x -> conv phase: the sites, then P1, P3, P5, P10 and P11 in
+    turns of the chain and the fused forms, beside the card."""
+    from split_vae_torch.core.config import (
+        CONFIG2_IMAGE_HW,
+        config2,
+        config5,
+        config_glimpse_spair,
+    )
+    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.models.spair import get_spair_model
+    from split_vae_torch.train.loop import build_vae_model
+    from split_vae_torch.train.optim import spair_optimizer
+    from split_vae_torch.train.steps import make_spair_train_step, make_vae_train_step
+
+    log(f"resize2x -> conv on {card_line()}")
+    resize_conv_sites(torch)
+    rng = np.random.RandomState(0)
+    spair_batches = [torch.from_numpy(rng.uniform(0, 1, (256, 48, 48, 3)).astype(np.float32))
+                     .cuda() for _ in range(2)]
+    vae_batches = [torch.from_numpy(rng.randint(0, 255, (64, *CONFIG2_IMAGE_HW, 3))
+                                    .astype(np.uint8)).cuda() for _ in range(2)]
+    log(f"resize2x -> conv turns ({', '.join(RESIZE_TURNS)}), each path from its seed:")
+    for name, cfg in (("P1", config5()), ("P3", config_glimpse_spair()),
+                      ("P5", config2()), ("P10", config5(compute_dtype="bfloat16")),
+                      ("P11", config2(compute_dtype="bfloat16"))):
+        if name in ("P5", "P11"):
+            model, tx = build_vae_model(cfg, CONFIG2_IMAGE_HW, device="cuda")
+            step, batches = make_vae_train_step(cfg), vae_batches
+        else:
+            model = get_spair_model(cfg, device="cuda")
+            tx, step, batches = (spair_optimizer(cfg.learning_rate),
+                                 make_spair_train_step(cfg), spair_batches)
+        state = create_train_state(model, tx, seed=cfg.seed)
+        resize_conv_turns(torch, name, step, state, batches, cfg.batch_size)
+        del model, state
+        torch.cuda.empty_cache()
 
 
 # The reference command of config #5 (split_vae_tpu/cli/spair_main.py:3-7) and
@@ -2452,6 +2663,9 @@ def main() -> None:
                  f"{losses[f32][0]}")
         log(f"{bf16} (bfloat16) vs {f32} (float32): first loss within {first:.3g} relative; "
             f"{rates[bf16]:.1f} against {rates[f32]:.1f} imgs/s")
+    # The resize2x -> conv fusion: its forms against the chain at every site,
+    # then the paths in turns of the chain and the fused forms.
+    run_resize_conv(torch, np)
     # The CLIs: config #5 and config #2 trained, checkpointed and resumed.
     from split_vae_torch.cli import spair_main, vae_main
 

@@ -167,6 +167,12 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) 
                 m.bias.fill_(getattr(m, "bias_init", 0.0))
 
 
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """tf.image.resize(method='bilinear') of NHWC (half-pixel centres) when upsampling."""
+    up = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear", align_corners=False)
+    return up.permute(0, 2, 3, 1)
+
+
 def flatten(x: torch.Tensor) -> torch.Tensor:
     """[B, ...] -> [B, -1] in the tensor's logical (NHWC) order."""
     return x.reshape(x.shape[0], -1)

@@ -4,8 +4,9 @@ Behavioural contract: vae/model.py:145-169. Upsampling is a bilinear resize
 followed by a stride-1 conv, not a transposed conv. The last conv gives twice
 the image's channels, split into (x_mean, x_log_scale) for the
 discretized-logistic likelihood. Flax names kept: ``Dense_0``, ``Conv_0`` ..
-``Conv_3`` (the JAX package runs ``Conv_3`` through its fused
-``Resize2xConvAny``; the port's ``Resize2xConv`` is the same map).
+``Conv_3``. As in the JAX package, only the output pair runs fused
+(``Resize2xConvAny``, 6x6: no upsampled tensor is formed); ``Conv_1`` and
+``Conv_2`` read ``resize_bilinear``'s output.
 """
 
 from __future__ import annotations
@@ -16,14 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from split_vae_torch.nn.common import Conv, Dense
-from split_vae_torch.nn.pixel_shuffle import Resize2xConv
-
-
-def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """tf.image.resize(method='bilinear') of NHWC (half-pixel centres) when upsampling."""
-    up = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear", align_corners=False)
-    return up.permute(0, 2, 3, 1)
+from split_vae_torch.nn.common import Conv, Dense, resize_bilinear
+from split_vae_torch.nn.pixel_shuffle import Resize2xConvAny
 
 
 class ConvDecoder(nn.Module):
@@ -39,8 +34,7 @@ class ConvDecoder(nn.Module):
         self.Conv_0 = Conv(128, 128, (4, 4), device=device, dtype=dtype)
         self.Conv_1 = Conv(128, 64, (4, 4), device=device, dtype=dtype)
         self.Conv_2 = Conv(64, 32, (6, 6), device=device, dtype=dtype)
-        self.Conv_3 = Resize2xConv(32, out_channels, (h, w), device, kernel_size=(6, 6),
-                                   dtype=dtype)
+        self.Conv_3 = Resize2xConvAny(32, out_channels, (6, 6), (h, w), device, dtype=dtype)
 
     def forward(self, z: torch.Tensor):
         h, w = self.image_hw

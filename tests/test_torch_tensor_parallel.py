@@ -19,6 +19,9 @@ step at the same global batch, the noise drawn and not replayed:
   gathered gradients the optimizer saw at rtol 1e-3, atol 1e-6 max|g|; the
   gathered parameters at Adam's rule; the
   ranks of a model index bit-equal, and every rank's gathered parameters;
+- a sharded fused ``Resize2xConv`` (3x3, h != w) and ``Resize2xConvAny``
+  (6x6) over the 1 x 2 grid equal to the whole layer: the output and the
+  gradients of the input, the gathered weight and the bias (rtol 1e-5);
 - the traps: a sharded gradient whose block's norm is below 1 and whose
   full norm is above is clipped by the full norm; a NaN in one model rank's
   block makes every rank skip; a 2 x 2 checkpoint is the 1-rank file (its
@@ -280,8 +283,51 @@ def replay_job(mesh: Mesh, out_dir: str):
             "grads": dict(zip(order, gathered_grads(seen[0], model, names)))}
 
 
+def resize_conv_cases():
+    """(name, whole layer, x, cotangent) from seed 0: the 3x3 phase form on a
+    non-square input and the 6x6 dilated form, each at exactly 2x."""
+    from split_vae_torch.nn.common import init_params
+    from split_vae_torch.nn.pixel_shuffle import Resize2xConv, Resize2xConvAny
+
+    gen = torch.Generator().manual_seed(0)
+    cases = []
+    for name, layer, hw in (("3x3", Resize2xConv(6, 8, (10, 12)), (5, 6)),
+                            ("6x6", Resize2xConvAny(6, 4, (6, 6), (8, 8)), (4, 4))):
+        init_params(layer, gen)
+        with torch.no_grad():
+            layer.bias.normal_(generator=gen)
+        x = torch.randn(2, *hw, 6, generator=gen)
+        cot = torch.randn(2, 2 * hw[0], 2 * hw[1], layer.bias.shape[0], generator=gen)
+        cases.append((name, layer, x, cot))
+    return cases
+
+
+def resize_conv_grads(layer, x, cot):
+    """The layer's output and the gradients of x, its weight and its bias."""
+    x = x.clone().requires_grad_()
+    out = layer(x)
+    return out.detach(), torch.autograd.grad((out * cot).sum(), [x, layer.weight, layer.bias])
+
+
+def resize_conv_job(mesh: Mesh, out_dir=None):
+    """Each fused layer sharded over the model group (this rank's block of
+    output channels, every rank the same input): its output and gradients,
+    the weight's gathered."""
+    from split_vae_torch.parallel.tensor import ModelShard
+
+    results = {}
+    for name, layer, x, cot in resize_conv_cases():
+        shard = ModelShard(mesh.model_group, mesh.model_rank, mesh.model_size)
+        layer.weight = torch.nn.Parameter(shard.block(layer.weight).clone())
+        layer.shard = shard
+        out, (gx, gw, gb) = resize_conv_grads(layer, x, cot)
+        results[name] = {"out": out, "grads": [gx, all_gather_cat(gw, shard, 0), gb]}
+    return results
+
+
 JOBS = {kind: functools.partial(run_step, kind) for kind in KINDS}
-JOBS.update(clip=clip_job, nan=nan_job, ckpt=ckpt_job, jax_replay=replay_job)
+JOBS.update(clip=clip_job, nan=nan_job, ckpt=ckpt_job, jax_replay=replay_job,
+            resize_conv=resize_conv_job)
 
 
 # ---------------------------------------------------------------- the CLI
@@ -320,11 +366,14 @@ def runs(tmp_path_factory):
         state = create_train_state(model, tx, seed=3)
         state, _ = step(state, batch)
         ckpt.save_checkpoint(os.path.join(out["2x2"], "one"), state)
-        waits = {"1x2": spawn_grid(GRIDS["1x2"], ["cli"] + list(KINDS) + ["clip", "nan"],
+        waits = {"1x2": spawn_grid(GRIDS["1x2"],
+                                   ["cli"] + list(KINDS) + ["clip", "nan", "resize_conv"],
                                    out["1x2"], cwd2),
                  "2x2": spawn_grid(GRIDS["2x2"], list(KINDS) + ["nan", "ckpt"], out["2x2"],
                                    out["2x2"])}
         one = {kind: one_rank_step(kind) for kind in KINDS}
+        one["resize_conv"] = {name: resize_conv_grads(layer, x, cot)
+                              for name, layer, x, cot in resize_conv_cases()}
         state, _ = step(state, batch)  # the grid's step from the checkpoint, in one process
         one["ckpt"] = [p.detach().clone() for p in model.parameters()]
         os.chdir(cwd1)
@@ -371,6 +420,20 @@ def test_sharded_layers_are_dense_and_conv(runs):
     assert any(isinstance(m, Dense) for m in owners) and any(isinstance(m, Conv) for m in owners)
     assert all(isinstance(m, (Dense, Conv)) for m in owners)
     assert all(n.endswith(".weight") for n in names)
+
+
+@pytest.mark.parametrize("name", ["3x3", "6x6"])
+def test_sharded_fused_layer_equals_the_whole_layer(runs, name):
+    """A sharded Resize2xConv (Resize2xConvAny) over 2 model ranks: the
+    output, the input's gradient (summed over the group), the gathered
+    weight's and the bias's gradients are the whole layer's."""
+    out, grads = runs[1]["resize_conv"][name]
+    for res in runs[0]["1x2"]:
+        got = res["resize_conv"][name]
+        torch.testing.assert_close(got["out"], out, rtol=1e-5, atol=1e-6)
+        for i, (g, w) in enumerate(zip(got["grads"], grads)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * w.abs().max().item(),
+                                       msg=f"gradient {i}")
 
 
 def test_clip_takes_the_full_norm(runs):
