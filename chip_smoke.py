@@ -52,7 +52,14 @@ row-windowed, and the STN glimpse crop), and the VAE-family train steps
       of 32,073,267 parameters), held against P13's references; then, where
       the machine has 2 cards, spair_main at config #5's flags with
       --num_model_shards 2 over NCCL for 20 steps (with one card, a line says
-      that the CLI's tensor parallelism is held by the CPU tests).
+      that the CLI's tensor parallelism is held by the CPU tests);
+  P16 chained steps, the card against the CPU: 5 train steps of a small
+      LG-SPAIR through each render pair (and the crop pair) and of a small
+      LGGMVae in float64, from a step just before a schedule's boundary (the
+      z_pres anneal's end at 9,999; the GM learning rate's step at count
+      1,000,000), the draws replayed, held at tests/test_torch_trajectory.py's
+      tolerances: each step's metrics at rtol 1e-4, the parameters and both
+      Adam moments after the last step within 1e-4 of each tensor's L2 norm.
 
 P6, P7, P9 and P12 also check the PNG artifacts of every eval: the names the
 JAX loop writes for the model and flags, each file decoded by
@@ -97,7 +104,8 @@ Phases, each of which must pass:
      BG-SPAIR, LGGlimpseSPAIR, LGVae, LGGMVae and GMVae (the GM steps with
      their dropout masks live; their gradients held in float64 on both
      devices, since the Gumbel softmax's backward cancels below the float32
-     tolerance), then each main path: train steps with
+     tolerance), then P16's chained steps (above), then each main path:
+     train steps with
      the kernels' launch counts set to 0 before and read after (and no call
      of interp_matrix: no dense interpolation weights), the allocator's
      counts and the garbage collector's passes around them, a profile of
@@ -886,6 +894,128 @@ def small_vae_step_check(torch, np, cfg, hw, label, grad_dtype=None):
     hold_small_step(torch, label, f"B={cfg.batch_size}, {hw[0]} px, patch {cfg.patch_size}, "
                     f"gradients in {str(grad_dtype).split('.')[-1]}",
                     [n for n, _ in cpu.named_parameters()], grads, results)
+
+
+# P16: chained steps on the card against the same steps on the CPU.
+CHAIN_STEPS = 5
+# Just before a schedule's boundary, in the loop's step and in Adam's count
+# (tests/test_torch_trajectory.py starts there too): the z_pres and zoom
+# priors reach their ends at step 9,999; the GM learning rate steps at count
+# 1,000,000.
+SPAIR_CHAIN_START, GM_CHAIN_START = 9_995, 999_996
+CHAIN_RTOL, CHAIN_NORM_TOL = 1e-4, 1e-4
+
+
+def run_chain(torch, model, tx, train_step, batches, replays, start, device):
+    """``train_step`` chained over ``batches`` on ``device`` from step and count
+    ``start`` (Adam's moments at zero); each step's metrics, then the
+    parameters and the moments after the last step, on the CPU."""
+    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.train.chains import adam_moments, at_count
+
+    state = create_train_state(model, tx, seed=0)
+    state.step = start
+    state.opt_state = at_count(state.opt_state, start, torch.full_like)
+    metrics = []
+    for batch, replay in zip(batches, replays):
+        state, m = train_step(state, batch.to(device), replay)
+        metrics.append({k: float(v) for k, v in m.items()})
+    mu, nu = adam_moments(state.opt_state)
+    cpu = lambda ts: [t.detach().cpu() for t in ts]  # noqa: E731
+    return metrics, {"params": cpu(model.parameters()), "mu": cpu(mu), "nu": cpu(nu)}
+
+
+def hold_chain(label, what, names, cpu, card):
+    """P16's check (tests/test_torch_trajectory.py's tolerances): every step's
+    metrics at rtol 1e-4; after the last step each parameter and both Adam
+    moments of each within 1e-4 of the CPU tensor's L2 norm."""
+    from split_vae_torch.train.chains import metric_gap, tensor_gap
+
+    (m_cpu, t_cpu), (m_card, t_card) = cpu, card
+    worst_m = metric_gap(m_cpu, m_card)
+    if not worst_m[0] <= CHAIN_RTOL:
+        fail(f"P16 {label}: metric gap {worst_m[0]:.3g} at {worst_m[1]} > {CHAIN_RTOL}")
+    gaps = {}
+    for kind in ("params", "mu", "nu"):
+        worst = tensor_gap(dict(zip(names, t_cpu[kind])), dict(zip(names, t_card[kind])))
+        if not worst[0] <= CHAIN_NORM_TOL:
+            fail(f"P16 {label}: {kind} of {worst[1]} {worst[0]:.3g} of its norm away from the "
+                 f"CPU's after {CHAIN_STEPS} steps > {CHAIN_NORM_TOL}")
+        gaps[kind] = worst
+    log(f"  P16 {label} ({what}, {CHAIN_STEPS} chained steps): metrics within {worst_m[0]:.3g} "
+        f"relative of the CPU's ({worst_m[1]}); after the last step " + ", ".join(
+            f"{k} within {g:.3g} of a norm ({n})" for k, (g, n) in gaps.items()))
+
+
+def chained_spair_check(torch, np, cfg, label, windowed=False, device="cuda"):
+    """P16 for a SPAIR-family model: CHAIN_STEPS train steps on the card
+    (through the render and crop kernels) against the same steps on the CPU
+    (their plain versions), from SPAIR_CHAIN_START, on the same uint8 batches,
+    the draws recorded on the CPU and replayed on both, render noise 0."""
+    from split_vae_torch.core.noise import Noise
+    from split_vae_torch.kernels import crop, render, render_windowed
+    from split_vae_torch.models.spair import get_spair_model
+    from split_vae_torch.train.optim import spair_optimizer
+    from split_vae_torch.train.steps import make_spair_train_step, model_inputs, normalize_images
+
+    hw = cfg.image_size[0]
+    rng = np.random.RandomState(3)
+    batches = [torch.from_numpy(rng.randint(0, 256, (cfg.batch_size, hw, hw, 3)).astype(np.uint8))
+               for _ in range(CHAIN_STEPS)]
+    cpu = get_spair_model(cfg, device="cpu")
+    card = get_spair_model(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    replays = []
+    for i, batch in enumerate(batches):
+        rec = RecordingNoise(Noise(torch.Generator().manual_seed(20 + i)))
+        with torch.no_grad():
+            cpu(model_inputs(cfg, normalize_images(batch, "unit"), rec), True, rec)
+        replays.append(rec.drawn)
+    pair = render_windowed if windowed else render
+    runs = []
+    for model, dev in ((cpu, "cpu"), (card, device)):
+        model.render_noise_scale = 0.0
+        before = (pair.fwd_launches, pair.bwd_launches, crop.bwd_launches)
+        runs.append(run_chain(torch, model, spair_optimizer(cfg.learning_rate),
+                              make_spair_train_step(cfg, windowed_render=windowed), batches,
+                              replays, SPAIR_CHAIN_START, dev))
+        moved = [n - b for n, b in zip((pair.fwd_launches, pair.bwd_launches,
+                                        crop.bwd_launches), before)]
+        if moved != ([CHAIN_STEPS] * 3 if dev != "cpu" else [0] * 3):
+            fail(f"P16 {label}: the chain on {dev} launched the render pair and the crop's "
+                 f"backward {moved} times")
+    hold_chain(label, f"B={cfg.batch_size}, {hw} px, {cfg.object_size}-px objects, from "
+               f"step {SPAIR_CHAIN_START}", [n for n, _ in cpu.named_parameters()], *runs)
+
+
+def chained_gm_check(torch, np, cfg, hw, label, device="cuda"):
+    """P16 for LGGMVae: CHAIN_STEPS float64 train steps on the card against
+    the same on the CPU, from GM_CHAIN_START (the learning rate steps inside
+    the chain), the draws and dropout masks recorded on the CPU and replayed."""
+    from split_vae_torch.core.noise import Noise
+    from split_vae_torch.train.chains import float64_steps
+    from split_vae_torch.train.loop import build_vae_model
+    from split_vae_torch.train.steps import augment, make_vae_train_step, normalize_images
+
+    rng = np.random.RandomState(4)
+    batches = [torch.from_numpy(rng.randint(0, 256, (cfg.batch_size, *hw, 3)).astype(np.uint8))
+               for _ in range(CHAIN_STEPS)]
+    cpu, tx = build_vae_model(cfg, hw, device="cpu")
+    card, _ = build_vae_model(cfg, hw, device=device)
+    card.load_state_dict(cpu.state_dict())
+    cpu.double()
+    card.double()
+    replays = []
+    for i, batch in enumerate(batches):
+        rec = RecordingNoise(Noise(torch.Generator().manual_seed(30 + i), dtype=torch.float64))
+        with torch.no_grad():
+            cpu(augment(cfg, normalize_images(batch, "tanh").double(), rec), True, rec)
+        replays.append(rec.drawn)
+    with float64_steps():
+        runs = [run_chain(torch, model, tx, make_vae_train_step(cfg), batches, replays,
+                          GM_CHAIN_START, dev) for model, dev in ((cpu, "cpu"), (card, device))]
+    hold_chain(label, f"B={cfg.batch_size}, {hw[0]} px, patch {cfg.patch_size}, float64, "
+               f"from count {GM_CHAIN_START}", [n for n, _ in cpu.named_parameters()], *runs)
 
 
 KERNELS = ("render_fwd", "render_bwd", "crop_fwd", "crop_bwd", "render_windowed_fwd",
@@ -2626,6 +2756,12 @@ def main() -> None:
         small_vae_step_check(torch, np, config3(model=kind, batch_size=4, global_latent_dims=8,
                                                 local_latent_dims=8, y_size=5), (32, 32), label,
                              grad_dtype=torch.float64)
+    # P16: the chained forms, the card's optimizer state against the CPU's.
+    chained_spair_check(torch, np, config5(**small, object_size=16), "LG-SPAIR")
+    chained_spair_check(torch, np, config5(**small, object_size=16),
+                        "LG-SPAIR, windowed render", windowed=True)
+    chained_gm_check(torch, np, config3(batch_size=4, global_latent_dims=8, local_latent_dims=8,
+                                        y_size=5), (32, 32), "LGGMVae")
     launches, losses, rates = {}, {}, {}
     for name, cfg, windowed_render in (("P1", config5(), False), ("P2", config_bg_spair(), False),
                                        ("P3", config_glimpse_spair(), False),

@@ -3,14 +3,17 @@ independence from JAX.
 
 Every leaf of a flax tree of each SPAIR model and of LGVae converts into the
 port's state_dict and back unchanged; a leaf with no counterpart on either side
-raises; and no module of the port, nor chip_smoke.py, crop_layer_turns.py or
-bf16_turns.py, imports jax, flax, optax, msgpack, the JAX package, its
+raises; the port initialises every family that train/loop.py builds (the
+four SPAIR models, LGVae, LGGMVae, GMVae and the probe classifier) by the JAX
+package's scheme; and no module of the port, nor chip_smoke.py, quality_runs_torch.py,
+crop_layer_turns.py or bf16_turns.py, imports jax, flax, optax, msgpack, the JAX package, its
 research tools, matplotlib or PIL (the real datasets' JPEG readers alone
 import PIL).
 """
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -27,7 +30,16 @@ from split_vae_torch.interop.flax_params import (  # noqa: E402
     load_flax_params,
     state_dict_to_flax,
 )
-from split_vae_torch.core.config import config2  # noqa: E402
+from split_vae_torch.core.config import (  # noqa: E402
+    CONFIG2_IMAGE_HW,
+    CONFIG3_IMAGE_HW,
+    config2,
+    config3,
+    config_bg_spair,
+    config_glimpse_spair,
+)
+from split_vae_torch.nn.classifier import Classifier as TorchClassifier  # noqa: E402
+from split_vae_torch.nn.common import BatchNorm, Conv, Dense, init_params  # noqa: E402
 from split_vae_torch.models.spair import get_spair_model as torch_model  # noqa: E402
 from split_vae_torch.models.vae import get_vae_model as torch_vae_model  # noqa: E402
 from split_vae_tpu.core.config import SpairConfig  # noqa: E402
@@ -193,6 +205,78 @@ def test_port_init_matches_flax_scheme():
             assert t.abs().max() <= limit and t.abs().max() > 0.5 * limit, name
 
 
+def _ones_bias_layers():
+    """The layers whose bias the JAX package starts at 1 (``bias_init=ones_bias``),
+    read from its source: the GM encoder's two sigma heads."""
+    names = set()
+    folder = os.path.join(REPO, "split_vae_tpu", "nn")
+    for f in sorted(os.listdir(folder)):
+        if f.endswith(".py"):
+            with open(os.path.join(folder, f)) as src:
+                names |= set(re.findall(r"self\.(\w+) = Dense\([^)]*bias_init=ones_bias",
+                                        src.read()))
+    return names
+
+
+def _family_model(family):
+    """The model train/loop.py builds for ``family``, at its full width, as the
+    loop initialises it (the classifier as train/probes.py::train_classifier
+    does)."""
+    if family in SPAIR_FAMILIES:
+        return torch_model(SPAIR_FAMILIES[family](), device="cpu")
+    if family in VAE_FAMILIES:
+        cfg, hw = VAE_FAMILIES[family]
+        return torch_vae_model(cfg(), hw, device="cpu")
+    model = TorchClassifier(device="cpu")
+    init_params(model, torch.Generator().manual_seed(0))
+    return model
+
+
+SPAIR_FAMILIES = {"lg_spair": config5, "spair": lambda: PortConfig(model="spair"),
+                  "bg_spair": config_bg_spair, "lg_glimpse_spair": config_glimpse_spair}
+VAE_FAMILIES = {"lgvae": (config2, CONFIG2_IMAGE_HW), "lggmvae": (config3, CONFIG3_IMAGE_HW),
+                "gmvae": (lambda: config3(model="gmvae"), CONFIG3_IMAGE_HW)}
+
+
+@pytest.mark.parametrize("family", [*SPAIR_FAMILIES, *VAE_FAMILIES, "classifier"])
+def test_port_init_matches_flax_scheme_for_every_family(family):
+    """Every Dense and Conv glorot-uniform within glorot's limit, which a leaf
+    of 1024 elements or more reaches (above 0.9 of it) with its sample
+    standard deviation within 10% of limit/sqrt(3); every bias 0 but the JAX
+    package's ``ones_bias`` layers' 1; BatchNorm's scale 1, bias 0, mean 0 and
+    variance 1, as flax starts them."""
+    ones = _ones_bias_layers()
+    assert ones == {"z_prior_sig_head", "z_sig_head"}
+    model = _family_model(family)
+    held = set()
+    for layer_name, layer in model.named_modules():
+        if isinstance(layer, (Dense, Conv)):
+            w = layer.weight.detach().double()
+            fan_in = w.shape[1] * w[0, 0].numel()
+            fan_out = w.shape[0] * w[0, 0].numel()
+            limit = np.sqrt(6.0 / (fan_in + fan_out))
+            top = float(w.abs().max())
+            assert top <= limit, layer_name
+            if w.numel() >= 1024:
+                assert top > 0.9 * limit, layer_name
+                std = float(w.std())
+                assert abs(std - limit / np.sqrt(3.0)) <= 0.1 * limit / np.sqrt(3.0), \
+                    f"{layer_name}: std {std:.4g}, glorot {limit / np.sqrt(3.0):.4g}"
+            want = 1.0 if layer_name.rsplit(".", 1)[-1] in ones else 0.0
+            assert torch.all(layer.bias == want), layer_name
+        elif isinstance(layer, BatchNorm):
+            for t, want in ((layer.weight, 1.0), (layer.bias, 0.0), (layer.running_mean, 0.0),
+                            (layer.running_var, 1.0)):
+                assert torch.all(t == want), layer_name
+        else:
+            continue
+        held |= {f"{layer_name}.{n}" for n, _ in layer.named_parameters(recurse=False)}
+    assert held == {n for n, _ in model.named_parameters()}
+    if family in ("lggmvae", "gmvae"):
+        assert any(torch.all(p == 1.0) for n, p in model.named_parameters()
+                   if n.endswith("sig_head.bias"))
+
+
 def test_entry_point_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -208,6 +292,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "quality_runs_torch.py")
     yield os.path.join(REPO, "crop_layer_turns.py")
     yield os.path.join(REPO, "bf16_turns.py")
 
