@@ -57,7 +57,9 @@ row-windowed, and the STN glimpse crop), and the VAE-family train steps
       LG-SPAIR through each render pair (and the crop pair) and of a small
       LGGMVae in float64, from a step just before a schedule's boundary (the
       z_pres anneal's end at 9,999; the GM learning rate's step at count
-      1,000,000), the draws replayed, held at tests/test_torch_trajectory.py's
+      1,000,000), and the full-canvas LG-SPAIR chain again from step 0 with a
+      fresh Adam state (the bias correction and the anneals' starts), the
+      draws replayed, held at tests/test_torch_trajectory.py's
       tolerances: each step's metrics at rtol 1e-4, the parameters and both
       Adam moments after the last step within 1e-4 of each tensor's L2 norm.
 
@@ -947,11 +949,13 @@ def hold_chain(label, what, names, cpu, card):
             f"{k} within {g:.3g} of a norm ({n})" for k, (g, n) in gaps.items()))
 
 
-def chained_spair_check(torch, np, cfg, label, windowed=False, device="cuda"):
+def chained_spair_check(torch, np, cfg, label, windowed=False, device="cuda",
+                        start=SPAIR_CHAIN_START):
     """P16 for a SPAIR-family model: CHAIN_STEPS train steps on the card
     (through the render and crop kernels) against the same steps on the CPU
-    (their plain versions), from SPAIR_CHAIN_START, on the same uint8 batches,
-    the draws recorded on the CPU and replayed on both, render noise 0."""
+    (their plain versions), from step and Adam count ``start`` (0: a fresh
+    state, as a run starts), on the same uint8 batches, the draws recorded on
+    the CPU and replayed on both, render noise 0."""
     from split_vae_torch.core.noise import Noise
     from split_vae_torch.kernels import crop, render, render_windowed
     from split_vae_torch.models.spair import get_spair_model
@@ -978,14 +982,14 @@ def chained_spair_check(torch, np, cfg, label, windowed=False, device="cuda"):
         before = (pair.fwd_launches, pair.bwd_launches, crop.bwd_launches)
         runs.append(run_chain(torch, model, spair_optimizer(cfg.learning_rate),
                               make_spair_train_step(cfg, windowed_render=windowed), batches,
-                              replays, SPAIR_CHAIN_START, dev))
+                              replays, start, dev))
         moved = [n - b for n, b in zip((pair.fwd_launches, pair.bwd_launches,
                                         crop.bwd_launches), before)]
         if moved != ([CHAIN_STEPS] * 3 if dev != "cpu" else [0] * 3):
             fail(f"P16 {label}: the chain on {dev} launched the render pair and the crop's "
                  f"backward {moved} times")
     hold_chain(label, f"B={cfg.batch_size}, {hw} px, {cfg.object_size}-px objects, from "
-               f"step {SPAIR_CHAIN_START}", [n for n, _ in cpu.named_parameters()], *runs)
+               f"step {start}", [n for n, _ in cpu.named_parameters()], *runs)
 
 
 def chained_gm_check(torch, np, cfg, hw, label, device="cuda"):
@@ -2760,6 +2764,9 @@ def main() -> None:
     chained_spair_check(torch, np, config5(**small, object_size=16), "LG-SPAIR")
     chained_spair_check(torch, np, config5(**small, object_size=16),
                         "LG-SPAIR, windowed render", windowed=True)
+    # From step 0 and a fresh Adam state: the bias correction, the anneals' starts.
+    chained_spair_check(torch, np, config5(**small, object_size=16), "LG-SPAIR from step 0",
+                        start=0)
     chained_gm_check(torch, np, config3(batch_size=4, global_latent_dims=8, local_latent_dims=8,
                                         y_size=5), (32, 32), "LGGMVae")
     launches, losses, rates = {}, {}, {}

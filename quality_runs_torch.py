@@ -11,6 +11,7 @@ Usage (on the GPU, float32 with TF32 off, as the train steps set it):
   python quality_runs_torch.py gmvae --style digits --steps 30000 --seed 0
   python quality_runs_torch.py spair ... --resume <run dir>/checkpoints
   python quality_runs_torch.py verdict   # the archived curves against JAX's
+  python quality_runs_torch.py early     # the early regime: collapse shares
 
 ``verdict`` reads the port's archived curves (``VERDICT_RUNS``: seeds 0-2,
 ``docs/quality/*_seed<s>_<n>k_steps_torch_h100.metrics.jsonl``) beside the
@@ -20,6 +21,14 @@ inside either is consistent; a fault is a JAX value outside both at both
 plateau steps (20k and 30k) of the decided metric. Where a seed has not
 reached a plateau step, that reading is missing and the verdict is
 ``undecided``: a shortfall is never read as consistent.
+
+``early`` reads config #5's early regime (``EARLY_RUNS``: the port's seeds
+0-14, the JAX package's TPU and CPU curves) by PERF.md's rule (section 7): a
+run is collapsed when ``train/z_what_kl_loss`` at the step-1000 record (the
+mean over steps 1-1000) lies below 60; the verdict is ``port lead`` where a
+one-sided Fisher exact test gives p < 0.05 that the port collapses more often
+than the pooled JAX runs, else ``platform`` where a JAX CPU run collapses and
+no TPU run does, else ``no lead``; ``undecided`` where a run lacks the record.
 
 A run writes the loop's run dir under ``--out_dir`` (``metrics.jsonl``, PNGs,
 a checkpoint every 5000 steps) and prints a last ``QUALITY_RESULT {...}`` line.
@@ -40,6 +49,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import sys
 
@@ -137,9 +147,7 @@ QUALITY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "
 # metrics and their readings, None for every record).
 VERDICT_RUNS = {
     "config #5 (--z_what_beta 0.1)": (
-        ("lgspair_ckb_rot6_zwb01_seed0_28k_steps_torch_h100",
-         "lgspair_ckb_rot6_zwb01_seed1_28k_steps_torch_h100",
-         "lgspair_ckb_rot6_zwb01_seed2_25k_steps_torch_h100"),
+        tuple(f"lgspair_ckb_rot6_zwb01_seed{s}_30k_steps_torch_h100" for s in (0, 1, 2)),
         ("lgspair_ckb_rot6_zwb01_30k_steps", "lgspair_ckb_rot6_zwb01_seed1_30k_steps"),
         ("test0/count_acc", (20_000, 30_000)),
         (("test1/count_acc", (20_000, 30_000)), ("train/total_loss", None))),
@@ -213,9 +221,83 @@ def verdict(quality_dir: str = QUALITY_DIR) -> dict:
     return out
 
 
+EARLY_KEY, EARLY_TEST_KEY, EARLY_STEP = "train/z_what_kl_loss", "test0/z_what_kl_loss", 1000
+COLLAPSED_BELOW = 60.0
+# group: the curves of config #5 with --z_what_beta 0.1 whose step-1000 record
+# is read; each seed once.
+EARLY_RUNS = {
+    "port": tuple(f"lgspair_ckb_rot6_zwb01_seed{s}_30k_steps_torch_h100" for s in (0, 1, 2))
+    + tuple(f"lgspair_ckb_rot6_zwb01_seed{s}_1k_steps_torch_h100" for s in range(3, 15)),
+    "jax_tpu": ("lgspair_ckb_rot6_zwb01_30k_steps", "lgspair_ckb_rot6_zwb01_seed1_30k_steps"),
+    "jax_cpu": tuple(f"lgspair_ckb_rot6_zwb01_seed{s}_1k_steps_jax_cpu" for s in (0, 1, 2)),
+}
+
+
+def fisher_greater(a: int, n1: int, c: int, n2: int) -> float:
+    """One-sided Fisher exact test: the probability of ``a`` or more of the
+    ``a + c`` collapsed runs falling in the first sample (``n1`` runs) when
+    the two samples share one rate (the hypergeometric tail)."""
+    k = a + c
+    tail = sum(math.comb(n1, x) * math.comb(n2, k - x) for x in range(a, min(n1, k) + 1))
+    return tail / math.comb(n1 + n2, k)
+
+
+def _binom_cdf(k: int, n: int, p: float) -> float:
+    return sum(math.comb(n, x) * p ** x * (1 - p) ** (n - x) for x in range(k + 1))
+
+
+def clopper_pearson(k: int, n: int, alpha: float = 0.05):
+    """The exact (Clopper-Pearson) 1 - alpha interval of a binomial share k / n."""
+    def solve(f):  # the p in [0, 1] where the decreasing f(p) crosses 0
+        lo, hi = 0.0, 1.0
+        for _ in range(60):
+            mid = (lo + hi) / 2
+            lo, hi = (mid, hi) if f(mid) > 0 else (lo, mid)
+        return (lo + hi) / 2
+
+    lower = 0.0 if k == 0 else solve(lambda p: alpha / 2 - (1 - _binom_cdf(k - 1, n, p)))
+    upper = 1.0 if k == n else solve(lambda p: _binom_cdf(k, n, p) - alpha / 2)
+    return lower, upper
+
+
+def early(quality_dir: str = QUALITY_DIR) -> dict:
+    """Each run's step-1000 reading and the verdict by PERF.md's rule;
+    printed as one line a run, then ``EARLY {...}``."""
+    readings = {}
+    for group, names in EARLY_RUNS.items():
+        for name in names:
+            path = os.path.join(quality_dir, name + ".metrics.jsonl")
+            curve = read_curve(name, quality_dir) if os.path.exists(path) else {}
+            value = curve.get(EARLY_KEY, {}).get(EARLY_STEP)
+            readings[name] = {"group": group, "value": value,
+                              "test": curve.get(EARLY_TEST_KEY, {}).get(EARLY_STEP),
+                              "collapsed": None if value is None else value < COLLAPSED_BELOW}
+            print(f"{group} {name}: " + ("no step-1000 record" if value is None else
+                  f"{value:.2f} (test0 {readings[name]['test'] or float('nan'):.2f}) "
+                  + ("collapsed" if value < COLLAPSED_BELOW else "not collapsed")))
+    counts = {g: [sum(bool(readings[n]["collapsed"]) for n in names), len(names)]
+              for g, names in EARLY_RUNS.items()}
+    out = {"counts": counts, "runs": readings}
+    if any(r["value"] is None for r in readings.values()):
+        out["verdict"] = "undecided"
+    else:
+        (a, n1), jax = counts["port"], [counts["jax_tpu"], counts["jax_cpu"]]
+        c, n2 = sum(x[0] for x in jax), sum(x[1] for x in jax)
+        out["p"] = fisher_greater(a, n1, c, n2)
+        out["share"], out["interval"] = a / n1, list(clopper_pearson(a, n1))
+        if out["p"] < 0.05:
+            out["verdict"] = "port lead"
+        elif counts["jax_cpu"][0] > 0 and counts["jax_tpu"][0] == 0:
+            out["verdict"] = "platform"
+        else:
+            out["verdict"] = "no lead"
+    print("EARLY " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("workload", choices=["spair", "gmvae", "verdict"])
+    ap.add_argument("workload", choices=["spair", "gmvae", "verdict", "early"])
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--model", default="lg_spair")
@@ -236,6 +318,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.workload == "verdict":
         return verdict()
+    if args.workload == "early":
+        return early()
     if args.workload == "spair":
         config = spair_config(args.steps or 20_000, args.batch or 256, args.out_dir,
                               model=args.model, lr=args.lr, dataset=args.dataset,

@@ -112,9 +112,9 @@ def maybe_initialize_distributed(coordinator: Optional[str] = None,
     exists already. Otherwise ``init_process_group`` at
     ``tcp://{coordinator}`` with ``num_processes`` and ``process_id``; without
     flags it takes torchrun's RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT.
-    ``backend`` None is NCCL where CUDA is available, else gloo. A failure to
-    initialize propagates: a job that asked for N processes never goes on as
-    one.
+    ``backend`` None is NCCL, which raises without CUDA before any
+    rendezvous: a CPU group asks for gloo. A failure to initialize
+    propagates: a job that asked for N processes never goes on as one.
     """
     if coordinator is None and num_processes is None and "WORLD_SIZE" in os.environ:
         num_processes = int(os.environ["WORLD_SIZE"])
@@ -133,9 +133,12 @@ def maybe_initialize_distributed(coordinator: Optional[str] = None,
         if "RANK" not in os.environ:
             raise ValueError("--coordinator needs --process_id (or torchrun's RANK) (ROADMAP A8)")
         process_id = int(os.environ["RANK"])
-    dist.init_process_group(backend or ("nccl" if torch.cuda.is_available() else "gloo"),
-                            init_method=f"tcp://{coordinator}", world_size=num_processes or 1,
-                            rank=process_id)
+    backend = backend or "nccl"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available for the NCCL backend; pass backend='gloo' "
+                           "to join the group on the CPU")
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes or 1, rank=process_id)
 
 
 def create_mesh(num_data: int = 0, num_model: int = 1,
@@ -146,8 +149,8 @@ def create_mesh(num_data: int = 0, num_model: int = 1,
     means all the ranks that remain, as in the JAX package; ``num_model``
     must divide the world, and ``num_data`` x ``num_model`` must be the world.
     Every rank makes every group, in one order (``dist.new_group`` is a
-    collective of the whole world). ``device`` None is cuda:{local rank} where
-    CUDA is available, else the CPU."""
+    collective of the whole world). ``device`` None is cuda:{local rank},
+    which raises without CUDA: a CPU mesh asks for the CPU."""
     grouped = dist.is_initialized()
     rank = dist.get_rank() if grouped else 0
     world = dist.get_world_size() if grouped else 1
@@ -168,7 +171,9 @@ def create_mesh(num_data: int = 0, num_model: int = 1,
         data_group, model_group = data_groups[rank % num_model], model_groups[rank // num_model]
     local = local_rank(rank if grouped else None)
     if device is None:
-        device = torch.device("cuda", local) if torch.cuda.is_available() else torch.device("cpu")
+        from split_vae_torch.models.spair import require_device
+
+        device = require_device(torch.device("cuda", local))
     return Mesh(rank, world, local, torch.device(device),
                 dist.get_backend() if grouped else None, num_model, data_group, model_group)
 

@@ -30,6 +30,12 @@ chain nan_robust(adam(gm_lr_schedule)) (train/loop.py:56-62), the probe
 classifier's adam(1e-4, amsgrad=True) (train/probes.py:171).
 The skip is a select on the device, so a step needs no sync.
 
+Each transformation runs as ``torch._foreach_*`` calls over the whole list
+(a host call an operation, where a loop over the tensors made one an
+operation and tensor), in the order of the per-tensor formulas, so its
+numbers are theirs bit for bit (``tests/test_torch_optim_lists.py``); the
+non-finite select stays one ``torch.where`` a tensor.
+
 Tensor parallelism (``parallel/mesh.py::model_reduce``): where a gradient is
 this rank's block of a parameter's rows, the clip takes the parameter's norm
 (the blocks' squared norms summed over the model group) and the skip decides
@@ -75,7 +81,8 @@ def clip_by_per_tensor_norm(max_norm: float,
             norms = [torch.sqrt(torch.sum(g * g)) for g in grads]
         if model_reduce is not None:
             norms = model_reduce.norms(grads, norms)
-        return [g * (max_norm / torch.clamp_min(n, max_norm)) for g, n in zip(grads, norms)], state
+        scales = max_norm / torch.clamp_min(torch.stack(norms), max_norm)
+        return list(torch._foreach_mul(grads, list(scales.unbind()))), state
 
     return GradientTransformation(init, update)
 
@@ -106,17 +113,24 @@ def adam(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
 
     def update(grads, state):
         lr = learning_rate(state.count) if callable(learning_rate) else learning_rate
-        mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
-        nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
+        mu = list(torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                                     torch._foreach_mul(state.mu, b1)))
+        nu = list(torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+                                     torch._foreach_mul(state.nu, b2)))
         count = state.count + 1
         t = count.to(torch.float32)
         bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=t.device), t)
         bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t)
         if amsgrad:
-            nu_max = [torch.maximum(vm, v / bc2) for vm, v in zip(state.nu_max, nu)]
-            updates = [-lr * ((m / bc1) / (torch.sqrt(vm) + eps)) for m, vm in zip(mu, nu_max)]
+            nu_max = list(torch._foreach_maximum(state.nu_max, torch._foreach_div(nu, bc2)))
+            denom = torch._foreach_sqrt(nu_max)
+        else:
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(denom, eps)
+        updates = list(torch._foreach_div(torch._foreach_div(mu, bc1), denom))
+        torch._foreach_mul_(updates, -lr)
+        if amsgrad:
             return updates, AmsgradState(count, mu, nu, nu_max)
-        updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for m, v in zip(mu, nu)]
         return updates, AdamState(count, mu, nu)
 
     return GradientTransformation(init, update)
@@ -158,10 +172,13 @@ def nan_robust(tx: GradientTransformation,
 
     def update(grads, state):
         inner_updates, inner_state = tx.update(grads, state.inner_state)
-        finite = torch.stack([torch.isfinite(u).all() for u in list(grads) + inner_updates]).all()
+        # The largest |x| of a tensor is finite exactly when every element is
+        # (a NaN propagates through the max).
+        peaks = torch._foreach_norm(list(grads) + inner_updates, ord=float("inf"))
+        finite = torch.isfinite(torch.stack(peaks)).all()
         if model_reduce is not None:
             finite = model_reduce.all(finite)
-        updates = [torch.where(finite, u, torch.zeros_like(u)) for u in inner_updates]
+        updates = [torch.where(finite, u, 0.0) for u in inner_updates]
         inner = _select(finite, inner_state, state.inner_state)
         count = state.total_notfinite + (~finite).to(torch.int32)
         return updates, SkipNonFiniteState(count, inner)

@@ -413,6 +413,20 @@ def test_maybe_initialize_distributed_propagates_real_failures(monkeypatch, no_t
     assert not torch.distributed.is_initialized()
 
 
+def test_defaults_need_cuda(monkeypatch, no_torchrun_env):
+    """With no device or backend asked for, the mesh takes cuda:{local rank}
+    and the group NCCL: without CUDA both raise, and the group before any
+    rendezvous, rather than go on over the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda *a, **k: pytest.fail("joined a group"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_mod.create_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_mod.maybe_initialize_distributed("host:1234", 2, 0)
+    assert mesh_mod.create_mesh(device="cpu").device == torch.device("cpu")
+
+
 def test_create_mesh_rules(no_torchrun_env):
     assert mesh_mod.create_mesh(device="cpu") == Mesh(0, 1, 0, torch.device("cpu"), None)
     assert mesh_mod.create_mesh(num_data=1, device="cpu").world == 1

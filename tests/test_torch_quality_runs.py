@@ -155,3 +155,76 @@ def test_verdict_is_undecided_without_a_plateau_reading(tmp_path, capsys, jax_ac
     assert rows[("test0/count_acc", 25_000)]["port"] == [0.4, 0.5, 0.6]
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert json.loads(last[len("VERDICT "):]) == {c: "undecided" for c in out}
+
+
+def _write_early(folder, collapsed, skip=None):
+    """The curves ``early`` reads: each group's first ``collapsed[group]``
+    runs read 26.5 at step 1000 (collapsed), the others 150.0; the run named
+    ``skip`` has only a 2000 record."""
+    for group, names in port_driver.EARLY_RUNS.items():
+        for i, name in enumerate(names):
+            value = 26.5 if i < collapsed[group] else 150.0
+            step = 2000 if name == skip else 1000
+            with open(os.path.join(folder, name + ".metrics.jsonl"), "w") as f:
+                f.write(json.dumps({"step": step, "train/z_what_kl_loss": value}) + "\n")
+                f.write(json.dumps({"step": step, "test0/z_what_kl_loss": value / 2}) + "\n")
+
+
+@pytest.mark.parametrize("collapsed,want,p", [
+    (dict(port=11, jax_tpu=0, jax_cpu=0), "port lead", 1365 / 167960),
+    (dict(port=10, jax_tpu=0, jax_cpu=1), "platform", (3003 * 5 + 1365) / 167960),
+    (dict(port=4, jax_tpu=0, jax_cpu=0), "no lead", 1365 / 4845),
+    (dict(port=15, jax_tpu=1, jax_cpu=1), "port lead", 10 / 1140),
+    (dict(port=9, jax_tpu=1, jax_cpu=1), "no lead", (5005 * 10 + 3003 * 5 + 1365) / 167960),
+])
+def test_early_follows_the_rule(tmp_path, capsys, collapsed, want, p):
+    """15 port runs against 2 TPU and 3 CPU runs of the JAX package, the
+    Fisher tail worked by hand (e.g. 11 of 15 against 0 of 5: C(15, 11) /
+    C(20, 11)); a collapsing CPU run makes ``platform`` only where the port
+    shows no lead and the TPU runs keep z_what."""
+    _write_early(str(tmp_path), collapsed)
+    out = port_driver.early(str(tmp_path))
+    assert out["verdict"] == want
+    assert out["counts"] == {"port": [collapsed["port"], 15],
+                             "jax_tpu": [collapsed["jax_tpu"], 2],
+                             "jax_cpu": [collapsed["jax_cpu"], 3]}
+    assert out["p"] == pytest.approx(p, rel=1e-12)
+    lo, hi = out["interval"]
+    assert lo <= out["share"] == collapsed["port"] / 15 <= hi
+    run = out["runs"][port_driver.EARLY_RUNS["port"][0]]
+    assert run["test"] == run["value"] / 2
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last[len("EARLY "):])["verdict"] == want
+
+
+@pytest.mark.parametrize("skip", ["record", "file"])
+def test_early_is_undecided_without_a_step_1000_record(tmp_path, capsys, skip):
+    """A run that has no step-1000 record, or no curve yet, leaves the
+    verdict undecided, whatever the other runs read."""
+    missing = port_driver.EARLY_RUNS["jax_cpu"][1]
+    _write_early(str(tmp_path), dict(port=15, jax_tpu=0, jax_cpu=0),
+                 skip=missing if skip == "record" else None)
+    if skip == "file":
+        os.remove(os.path.join(str(tmp_path), missing + ".metrics.jsonl"))
+    out = port_driver.early(str(tmp_path))
+    assert out["verdict"] == "undecided" and "p" not in out
+    assert out["runs"][missing]["value"] is None
+    assert "no step-1000 record" in capsys.readouterr().out
+
+
+def test_clopper_pearson_interval():
+    """The exact interval's known values: 10 of 15 gives (0.3838, 0.8818);
+    0 of n and n of n reach 0 and 1."""
+    lo, hi = port_driver.clopper_pearson(10, 15)
+    assert (lo, hi) == (pytest.approx(0.38380, abs=1e-5), pytest.approx(0.88176, abs=1e-5))
+    assert port_driver.clopper_pearson(0, 15)[0] == 0.0
+    assert port_driver.clopper_pearson(15, 15)[1] == 1.0
+    assert port_driver.clopper_pearson(0, 15)[1] == pytest.approx(1 - 0.025 ** (1 / 15))
+
+
+def test_fisher_tail_reads_the_rules_examples():
+    """PERF.md's example, 11 of 15 against 0 of 4, gives p = 0.018; the record
+    before the runs, 4 of 5 against 0 of 2, gives 1/7."""
+    assert port_driver.fisher_greater(11, 15, 0, 4) == pytest.approx(1365 / 75582, rel=1e-12)
+    assert port_driver.fisher_greater(4, 5, 0, 2) == pytest.approx(1 / 7, rel=1e-12)
+    assert port_driver.fisher_greater(0, 15, 0, 4) == 1.0

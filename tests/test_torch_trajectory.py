@@ -38,6 +38,12 @@ zero, so the chain crosses it:
   is made float64 by casting its normalized batch and its noise up (the JAX
   step's flax layers compute in float64 on the float32 batch).
 
+The two SPAIR chains also run from step 0 with a fresh Adam state (count
+0, moments zero), as a user's run starts: through the same compiled JAX
+programs, since the step and the count are traced. These cross Adam's bias
+correction at its largest (1 - 0.9 at the first step) and the z_pres,
+zoom-prior and beta anneals at their starts, where no other chain looks.
+
 Held: every step's metrics at rtol 1e-4; after the last step, every
 parameter and both Adam moments of every parameter within 1e-4 of the JAX
 tensor's L2 norm (||port - jax|| <= 1e-4 ||jax||, the measure chip_smoke.py's
@@ -254,18 +260,18 @@ def _spair_plan(kind):
     zeros = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), lowered_init.out_info)
     shapes = jax.eval_shape(lambda: _state(model, lambda *a, **kw: zeros, x, tx, SPAIR_START))
 
-    def run(init, step):
-        state = _state(model, lambda rngs, x, **kw: init(rngs, x), x, tx, SPAIR_START)
+    def run(init, step, start=SPAIR_START):
+        state = _state(model, lambda rngs, x, **kw: init(rngs, x), x, tx, start)
         params0 = jax.tree.map(np.array, state.params)
         j_state, j_metrics, replays = _jax_chain(step, state, batches)
         tmodel = load_flax_params(torch_spair(port_cfg, device="cpu"), params0)
         tmodel.render_noise_scale = 0.0
         tstate = torch_state(tmodel, spair_optimizer(port_cfg.learning_rate), seed=0)
-        tstate.step = SPAIR_START
-        tstate.opt_state = at_count(tstate.opt_state, SPAIR_START, torch.full_like)
+        tstate.step = start
+        tstate.opt_state = at_count(tstate.opt_state, start, torch.full_like)
         tstate, t_metrics = _port_chain(torch_steps.make_spair_train_step(port_cfg), tstate,
                                         batches, replays)
-        return _finish(tmodel, j_state, tstate, j_metrics, t_metrics, SPAIR_START)
+        return _finish(tmodel, j_state, tstate, j_metrics, t_metrics, start)
 
     step = _lowered_step(jax_spair_step(jax_cfg), shapes, jnp.asarray(batches[0]))
     return Plan((lowered_init, step), run)
@@ -314,11 +320,17 @@ def chains():
                            ("bg_spair", lambda: _spair_plan("bg_spair")), ("lggmvae", _gm_plan)):
             plan = plan()
             plans[kind] = plan, [pool.submit(lowered.compile) for lowered in plan.lowered]
-        return {kind: plan.run(*[c.result() for c in compiled])
-                for kind, (plan, compiled) in plans.items()}
+        out = {}
+        for kind, (plan, compiled) in plans.items():
+            programs = [c.result() for c in compiled]
+            out[kind] = plan.run(*programs)
+            if kind != "lggmvae":  # the count is traced: the same programs from step 0
+                out[kind + "_from_0"] = plan.run(*programs, start=0)
+        return out
 
 
-@pytest.fixture(params=["lg_spair", "bg_spair", "lggmvae"])
+@pytest.fixture(params=["lg_spair", "bg_spair", "lggmvae", "lg_spair_from_0",
+                        "bg_spair_from_0"])
 def chain(request, chains):
     return chains[request.param]
 
