@@ -956,8 +956,8 @@ def chained_spair_check(torch, np, cfg, label, windowed=False, device="cuda",
     (their plain versions), from step and Adam count ``start`` (0: a fresh
     state, as a run starts), on the same uint8 batches, the draws recorded on
     the CPU and replayed on both, render noise 0."""
+    from split_vae_torch.core import tracing
     from split_vae_torch.core.noise import Noise
-    from split_vae_torch.kernels import crop, render, render_windowed
     from split_vae_torch.models.spair import get_spair_model
     from split_vae_torch.train.optim import spair_optimizer
     from split_vae_torch.train.steps import make_spair_train_step, model_inputs, normalize_images
@@ -975,16 +975,17 @@ def chained_spair_check(torch, np, cfg, label, windowed=False, device="cuda",
         with torch.no_grad():
             cpu(model_inputs(cfg, normalize_images(batch, "unit"), rec), True, rec)
         replays.append(rec.drawn)
-    pair = render_windowed if windowed else render
+    pair = "render_windowed" if windowed else "render"
+    counted = (f"{pair}.fwd", f"{pair}.bwd", "crop.bwd")
     runs = []
     for model, dev in ((cpu, "cpu"), (card, device)):
         model.render_noise_scale = 0.0
-        before = (pair.fwd_launches, pair.bwd_launches, crop.bwd_launches)
+        before = tracing.counters()
         runs.append(run_chain(torch, model, spair_optimizer(cfg.learning_rate),
                               make_spair_train_step(cfg, windowed_render=windowed), batches,
                               replays, start, dev))
-        moved = [n - b for n, b in zip((pair.fwd_launches, pair.bwd_launches,
-                                        crop.bwd_launches), before)]
+        after = tracing.counters()
+        moved = [after.get(c, 0) - before.get(c, 0) for c in counted]
         if moved != ([CHAIN_STEPS] * 3 if dev != "cpu" else [0] * 3):
             fail(f"P16 {label}: the chain on {dev} launched the render pair and the crop's "
                  f"backward {moved} times")
@@ -1026,16 +1027,23 @@ KERNELS = ("render_fwd", "render_bwd", "crop_fwd", "crop_bwd", "render_windowed_
            "render_windowed_bwd")
 
 
-def reset_launches(render, crop, windowed):
-    for module in (render, crop, windowed):
-        module.fwd_launches = module.bwd_launches = 0
+_LAUNCHES_FROM = {}
 
 
-def read_launches(render, crop, windowed):
-    return {"render_fwd": render.fwd_launches, "render_bwd": render.bwd_launches,
-            "crop_fwd": crop.fwd_launches, "crop_bwd": crop.bwd_launches,
-            "render_windowed_fwd": windowed.fwd_launches,
-            "render_windowed_bwd": windowed.bwd_launches}
+def reset_launches():
+    """Marks the kernels' launch counters (``core/tracing.py``) as the base
+    that ``read_launches`` counts from."""
+    from split_vae_torch.core import tracing
+    _LAUNCHES_FROM.clear()
+    _LAUNCHES_FROM.update(tracing.counters())
+
+
+def read_launches():
+    """Each kernel's launches since ``reset_launches``, under ``KERNELS``' names."""
+    from split_vae_torch.core import tracing
+    now = tracing.counters()
+    counter = {k: ".".join(k.rsplit("_", 1)) for k in KERNELS}
+    return {k: now.get(c, 0) - _LAUNCHES_FROM.get(c, 0) for k, c in counter.items()}
 
 
 MEMORY_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
@@ -1189,7 +1197,7 @@ def log_profile(torch, name, train_step, state, batch):
     return state
 
 
-def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False):
+def run_path(torch, np, name, cfg, windowed_render=False):
     """A SPAIR-family main path at full width: train steps through the kernels
     with the launch counts set to 0 before and read after, a profile, one eval
     step. ``windowed_render`` takes the row-windowed render pair, and then the
@@ -1209,11 +1217,11 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
     log(f"{name} ({cfg.model}, {cfg.object_size}-px objects, "
         f"{'row-windowed' if windowed_render else 'full-canvas'} render, {cfg.compute_dtype}): "
         f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
-    reset_launches(render, crop, windowed)
+    reset_launches()
     with CountInterpMatrix() as dense:
         state, losses, rate = timed_steps(torch, np, name, train_step, state, batches,
                                           cfg.batch_size)
-    launches = read_launches(render, crop, windowed)
+    launches = read_launches()
     check_float32_state(name, state)
     if dense.calls:
         fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls "
@@ -1246,7 +1254,7 @@ def run_path(torch, np, name, cfg, render, crop, windowed, windowed_render=False
     return launches, losses, rate
 
 
-def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
+def run_vae_path(torch, np, name, cfg, hw):
     """A VAE-family main path at full width (LGVae, LGGMVae): train steps on
     uint8 batches, a profile, one eval step. No hand-written kernel lies on
     it; the launch counts are read all the same, must be 0, and are returned,
@@ -1266,9 +1274,9 @@ def run_vae_path(torch, np, name, cfg, hw, render, crop, windowed):
         f"{cfg.global_latent_dims}/{cfg.local_latent_dims}, beta {cfg.beta}{gm}, "
         f"{cfg.compute_dtype}): "
         f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
-    reset_launches(render, crop, windowed)
+    reset_launches()
     state, losses, rate = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
-    launches = read_launches(render, crop, windowed)
+    launches = read_launches()
     check_float32_state(name, state)
     if any(launches.values()):
         fail(f"{name}: a SPAIR kernel was launched on the {cfg.model} path: {launches}")
@@ -1634,8 +1642,8 @@ def check_pngs(np, name, run_dir, steps, expected):
     return len(files), nbytes
 
 
-def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windowed,
-                 first=FIRST_STEPS, resumed=RESUMED_STEPS, prepare=None, pngs=None):
+def run_cli_path(torch, np, name, main, argv, test_prefixes, first=FIRST_STEPS,
+                 resumed=RESUMED_STEPS, prepare=None, pngs=None):
     """A CLI driven in-process in a temporary directory (the working directory,
     data_dir and output_dir): ``first`` steps with evals and checkpoints
     every 20, then, unless ``resumed`` is None, ``--resume`` from that run's
@@ -1693,7 +1701,7 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
         try:
             if prepare is not None:
                 prepare(tmp)
-            reset_launches(render, crop, windowed)
+            reset_launches()
             with CountInterpMatrix() as dense, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
                 common = argv + ["--data_dir", tmp, "--output_dir", os.path.join(tmp, "output")]
                 t0 = time.perf_counter()
@@ -1710,7 +1718,7 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, render, crop, windo
             for k in viz_fns:
                 setattr(loop, k, originals[k])
             os.chdir(cwd)
-        launches = read_launches(render, crop, windowed)
+        launches = read_launches()
         prefixes = ("train/",) + test_prefixes
         evals = list(range(20, first + 1, 20))
         records = check_cli_run(np, name, tmp, run, evals, prefixes)
@@ -1770,7 +1778,7 @@ CONFIG3_ARGV = ["--model", "lggmvae", "--beta", "40", "--alpha", "40", "--y_size
                 "digits", "--synthetic_size", "8192"]
 
 
-def run_classifier_cli(torch, np, render, crop, windowed):
+def run_classifier_cli(torch, np):
     """P9, first part: classifier_main --epochs 1 -synthetic_data in a
     temporary directory; its losses finite, its .pt written, no kernel
     launched. Returns the launch counts."""
@@ -1783,7 +1791,7 @@ def run_classifier_cli(torch, np, render, crop, windowed):
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
-        reset_launches(render, crop, windowed)
+        reset_launches()
         try:
             with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
                 t0 = time.perf_counter()
@@ -1799,7 +1807,7 @@ def run_classifier_cli(torch, np, render, crop, windowed):
         weights = os.path.join(tmp, "models", "svhn_classifier_weights_synth_blobs_512.pt")
         if not os.path.isfile(weights):
             fail(f"P9: classifier_main wrote no {os.path.relpath(weights, tmp)}")
-        launches = read_launches(render, crop, windowed)
+        launches = read_launches()
     if any(launches.values()):
         fail(f"P9: a SPAIR kernel was launched by classifier_main: {launches}")
     log(f"P9 classifier_main: one epoch of 640 images (train and test) in {t1 - t0:.1f} s, "
@@ -1922,7 +1930,7 @@ def p13_batches(torch, np, cfg, device):
                              .astype(np.float32)).to(device) for _ in range(2)]
 
 
-def p13_steps(torch, np, mesh, render, crop, windowed):
+def p13_steps(torch, np, mesh):
     """P1's configuration, seed and two batches (config #5, global B=256)
     through P13_STEPS train steps on this rank's rows, every rank starting
     from rank 0's state, then keeping its blocks of the weights that the JAX
@@ -1973,7 +1981,7 @@ def p13_steps(torch, np, mesh, render, crop, windowed):
     undo = timed_collectives(torch, spans)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(render, crop, windowed)
+    reset_launches()
     losses, times = [], []
     try:
         for i in range(P13_STEPS):
@@ -1996,7 +2004,7 @@ def p13_steps(torch, np, mesh, render, crop, windowed):
             del grads, full, opt
     finally:
         undo()
-    launches = read_launches(render, crop, windowed)
+    launches = read_launches()
     steps = P13_STEPS - 1
     return dict(record, losses=[v.item() for v in losses],
                 notfinite=int(metrics["notfinite_updates"].item()), launches=launches,
@@ -2103,8 +2111,6 @@ def p13_rank(rank, world, port, out, num_model=1):
     import torch
     import torch.distributed as dist
 
-    from split_vae_torch.kernels import crop, render
-    from split_vae_torch.kernels import render_windowed as windowed
     from split_vae_torch.parallel import mesh as mesh_mod
     from split_vae_torch.train.steps import use_fp32
 
@@ -2114,7 +2120,7 @@ def p13_rank(rank, world, port, out, num_model=1):
     mesh = mesh_mod.create_mesh(num_model=num_model, device=torch.device("cuda", 0))
     draw = torch.randn(P13_DRAW, generator=torch.Generator("cuda").manual_seed(P13_DRAW_SEED),
                        device="cuda").cpu()
-    result = p13_steps(torch, np, mesh, render, crop, windowed)
+    result = p13_steps(torch, np, mesh)
     result.update(draw=draw, backend=mesh.backend, world=mesh.world,
                   grid=(mesh.data_rank, mesh.model_rank))
     torch.save(result, os.path.join(out, f"p13_rank{rank}.pt"))
@@ -2174,7 +2180,7 @@ def hold_each_step(torch, np, label, names, ranks_record, chain, device, blocks=
     return missed
 
 
-def run_p13(torch, np, render, crop, windowed):
+def run_p13(torch, np):
     """P13: LG-SPAIR at config #5, full width, in 2 processes on the one card
     (gloo), 128 rows each of the global batch of 256, against the same steps
     in one process, and against the two halves' steps computed here (what
@@ -2187,7 +2193,7 @@ def run_p13(torch, np, render, crop, windowed):
     from split_vae_torch.parallel.mesh import Mesh
 
     cuda0 = torch.device("cuda", 0)
-    one = p13_steps(torch, np, Mesh(device=cuda0), render, crop, windowed)
+    one = p13_steps(torch, np, Mesh(device=cuda0))
     chain = p13_emulated(torch, np, cuda0)
     split, split_params1, split_params = chain["grads"][0], chain["params"][0], chain["params"][-1]
     draw = torch.randn(P13_DRAW, generator=torch.Generator("cuda").manual_seed(P13_DRAW_SEED),
@@ -2301,7 +2307,7 @@ P15_SHARDED = sorted([
 P15_GRID = (2, 2)  # data x model
 
 
-def run_p15(torch, np, render, crop, windowed, one, chain):
+def run_p15(torch, np, one, chain):
     """P15: tensor parallelism. P13's configuration, seed and batches (config
     #5, global B=256) in 4 processes on the one card over gloo, a grid of 2
     data x 2 model (128 rows a data index), the JAX rule's 12 weights sharded,
@@ -2490,8 +2496,6 @@ def p14_rank(rank, world, port, tmp, out):
 
     from split_vae_torch.cli import vae_main
     from split_vae_torch.core.config import CONFIG2_IMAGE_HW, config2
-    from split_vae_torch.kernels import crop, render
-    from split_vae_torch.kernels import render_windowed as windowed
     from split_vae_torch.parallel.mesh import flat_all_reduce_mean_
     from split_vae_torch.train.loop import build_vae_model
 
@@ -2500,7 +2504,7 @@ def p14_rank(rank, world, port, tmp, out):
     os.chdir(tmp)
     spans = []
     undo = timed_collectives(torch, spans)
-    reset_launches(render, crop, windowed)
+    reset_launches()
     try:
         vae_main.main(CONFIG2_ARGV + [
             "-synthetic_data", "--training_steps", str(P14_STEPS), "--eval_interval",
@@ -2510,7 +2514,7 @@ def p14_rank(rank, world, port, tmp, out):
             "--process_id", str(rank)])
     finally:
         undo()
-    launches = read_launches(render, crop, windowed)
+    launches = read_launches()
     reduce_ms = [s.elapsed_time(e) for kind, _, s, e in spans if kind == "reduce"]
     explicit = None
     if world == 1:
@@ -2773,8 +2777,8 @@ def main() -> None:
     for name, cfg, windowed_render in (("P1", config5(), False), ("P2", config_bg_spair(), False),
                                        ("P3", config_glimpse_spair(), False),
                                        ("P4", config5(), True)):
-        launches[name], losses[name], rates[name] = run_path(torch, np, name, cfg, render, crop,
-                                                             windowed, windowed_render)
+        launches[name], losses[name], rates[name] = run_path(torch, np, name, cfg,
+                                                             windowed_render)
         torch.cuda.empty_cache()
     # P4 is P1 with the other render pair: the same model, batches and draws,
     # the render seeds included. The first loss differs by the two kernels'
@@ -2787,17 +2791,16 @@ def main() -> None:
     log(f"P4 vs P1: first loss within {first:.3g} relative, last within "
         f"{abs(losses['P4'][-1] - losses['P1'][-1]) / abs(losses['P1'][-1]):.3g}")
     launches["P5"], losses["P5"], rates["P5"] = run_vae_path(
-        torch, np, "P5", config2(), CONFIG2_IMAGE_HW, render, crop, windowed)
+        torch, np, "P5", config2(), CONFIG2_IMAGE_HW)
     torch.cuda.empty_cache()
     # bfloat16: config #5 and config #2 again, every Dense and Conv in bfloat16,
     # the same seeds and batches; the first loss within rtol 0.02 of the
     # float32 path's (the JAX package's own contract, tests/test_bf16_mode.py).
     launches["P10"], losses["P10"], rates["P10"] = run_path(
-        torch, np, "P10", config5(compute_dtype="bfloat16"), render, crop, windowed)
+        torch, np, "P10", config5(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()
     launches["P11"], losses["P11"], rates["P11"] = run_vae_path(
-        torch, np, "P11", config2(compute_dtype="bfloat16"), CONFIG2_IMAGE_HW, render, crop,
-        windowed)
+        torch, np, "P11", config2(compute_dtype="bfloat16"), CONFIG2_IMAGE_HW)
     torch.cuda.empty_cache()
     for bf16, f32 in (("P10", "P1"), ("P11", "P5")):
         first = abs(losses[bf16][0] - losses[f32][0]) / abs(losses[f32][0])
@@ -2816,34 +2819,32 @@ def main() -> None:
                 "--log_every", "10"]
     launches["P6"], loop_rate, _ = run_cli_path(
         torch, np, "P6", spair_main.main, CONFIG5_ARGV + cli_args + ["--batch_size", "256"],
-        ("test0/", "test1/"), render, crop, windowed,
-        pngs=spair_pngs((48, 48), 4, 32, 2, 256, "lg_spair"))
+        ("test0/", "test1/"), pngs=spair_pngs((48, 48), 4, 32, 2, 256, "lg_spair"))
     log(f"P6: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #5, B=256; steps "
         f"21-40 and the step-20 checkpoint's write) beside P1's timed steps {rates['P1']:.1f} "
         f"imgs/s in this run")
     torch.cuda.empty_cache()
     p7_pngs = vae_pngs(CONFIG2_IMAGE_HW, "lgvae", svhn=False, viz=False, last_batch=64, y_size=0)
     launches["P7"], loop_rate, _ = run_cli_path(
-        torch, np, "P7", vae_main.main, CONFIG2_ARGV + cli_args, ("test/",), render, crop,
-        windowed, pngs=p7_pngs)
+        torch, np, "P7", vae_main.main, CONFIG2_ARGV + cli_args, ("test/",), pngs=p7_pngs)
     log(f"P7: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #2, B=64; steps "
         f"21-40 and the step-20 checkpoint's write) beside P5's timed steps {rates['P5']:.1f} "
         f"imgs/s in this run")
     torch.cuda.empty_cache()
     launches["P12"], loop_rate, _ = run_cli_path(
         torch, np, "P12", vae_main.main,
-        CONFIG2_ARGV + cli_args + ["--compute_dtype", "bfloat16"], ("test/",), render, crop,
-        windowed, first=20, resumed=None, pngs=p7_pngs)
+        CONFIG2_ARGV + cli_args + ["--compute_dtype", "bfloat16"], ("test/",), first=20,
+        resumed=None, pngs=p7_pngs)
     log(f"P12: config #2 in bfloat16 through vae_main, the loop's train/imgs_per_sec at step 20 "
         f"{loop_rate:.1f} (steps 1-20, the first step's set-up included)")
     torch.cuda.empty_cache()
     # Config #3: LGGMVae at full width, then through the CLIs with the probe.
     launches["P8"], losses["P8"], rates["P8"] = run_vae_path(
-        torch, np, "P8", config3(), CONFIG3_IMAGE_HW, render, crop, windowed)
+        torch, np, "P8", config3(), CONFIG3_IMAGE_HW)
     torch.cuda.empty_cache()
     from split_vae_torch.cli import vae_main as vae_cli
 
-    launches["P9"] = run_classifier_cli(torch, np, render, crop, windowed)
+    launches["P9"] = run_classifier_cli(torch, np)
 
     def committed_classifier(tmp):
         os.makedirs(os.path.join(tmp, "models"))
@@ -2851,8 +2852,8 @@ def main() -> None:
                     os.path.join(tmp, "models", DIGITS_CLASSIFIER))
 
     p9, loop_rate, records = run_cli_path(
-        torch, np, "P9", vae_cli.main, CONFIG3_ARGV + cli_args + ["-viz"], ("test/",), render,
-        crop, windowed, prepare=committed_classifier,
+        torch, np, "P9", vae_cli.main, CONFIG3_ARGV + cli_args + ["-viz"], ("test/",),
+        prepare=committed_classifier,
         pngs=vae_pngs(CONFIG3_IMAGE_HW, "lggmvae", svhn=True, viz=True, last_batch=64,
                       y_size=30))
     check_probe_records("P9", records, PROBE_KEYS)
@@ -2861,8 +2862,8 @@ def main() -> None:
         f"timed steps {rates['P8']:.1f} imgs/s in this run")
     p9_gm, loop_rate, records = run_cli_path(
         torch, np, "P9 gmvae", vae_cli.main,
-        CONFIG3_ARGV + cli_args + ["--model", "gmvae", "-viz"], ("test/",), render, crop,
-        windowed, first=20, resumed=None, prepare=committed_classifier,
+        CONFIG3_ARGV + cli_args + ["--model", "gmvae", "-viz"], ("test/",), first=20,
+        resumed=None, prepare=committed_classifier,
         pngs=vae_pngs(CONFIG3_IMAGE_HW, "gmvae", svhn=True, viz=True, last_batch=64, y_size=30))
     check_probe_records("P9 gmvae", records, ())
     launches["P9"] = {k: launches["P9"][k] + p9[k] + p9_gm[k] for k in KERNELS}
@@ -2870,9 +2871,9 @@ def main() -> None:
     # Data parallelism: config #5 in 2 processes on the card, config #2 on NCCL;
     # tensor parallelism: config #5 in a 2 x 2 grid on the card, held to P13's
     # references.
-    launches["P13"], one, chain = run_p13(torch, np, render, crop, windowed)
+    launches["P13"], one, chain = run_p13(torch, np)
     torch.cuda.empty_cache()
-    launches["P15"] = run_p15(torch, np, render, crop, windowed, one, chain)
+    launches["P15"] = run_p15(torch, np, one, chain)
     del one, chain
     torch.cuda.empty_cache()
     launches["P14"] = run_p14(torch, np)

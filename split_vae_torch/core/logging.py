@@ -3,7 +3,8 @@
 
 Every metrics interval lands in ``<run_dir>/metrics.jsonl`` as
 ``{"step", "time", "<prefix><key>": float}`` (the JAX package's layout) and is
-printed; ``maybe_profile`` writes a ``torch.profiler`` trace of a block.
+printed; ``maybe_profile`` writes a ``torch.profiler`` trace of a block, with
+the port's spans in it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from datetime import datetime
 from typing import Dict, Optional
 
 import torch
+
+from split_vae_torch.core import tracing
 
 
 def make_run_dir(output_dir: str) -> str:
@@ -58,7 +61,9 @@ class RunLogger:
 @contextlib.contextmanager
 def maybe_profile(profile_dir: Optional[str], step: int):
     """A torch.profiler trace of this block, written to
-    ``<profile_dir>/step_<step>/trace.json``, when profile_dir is set."""
+    ``<profile_dir>/step_<step>/trace.json``, when profile_dir is set. The
+    port's tracing is on inside the block, so the trace holds its spans
+    (``core/tracing.py``) above the device's rows."""
     if not profile_dir:
         yield
         return
@@ -67,8 +72,15 @@ def maybe_profile(profile_dir: Optional[str], step: int):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
+    was_on = tracing.enabled()
+    tracing.enable(True)
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        tracing.enable(was_on)
+        if not was_on:
+            tracing.drain()
     out = os.path.join(profile_dir, f"step_{step}")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))

@@ -20,6 +20,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from split_vae_torch.core import tracing
 from split_vae_torch.parallel.mesh import Mesh, all_reduce_mean_values
 
 
@@ -36,7 +37,8 @@ class MeanMetrics:
         self._pending: List[Dict] = []
 
     def update(self, metrics: Dict) -> None:
-        self._pending.append(metrics)
+        with tracing.span("metrics.update"):
+            self._pending.append(metrics)
 
     def _add(self, key: str, value: float) -> None:
         self._sums[key] = self._sums.get(key, 0.0) + value
@@ -45,6 +47,10 @@ class MeanMetrics:
     def _drain(self) -> None:
         if not self._pending:
             return
+        with tracing.span("metrics.drain"):
+            self._drain_pending()
+
+    def _drain_pending(self) -> None:
         stacked: Dict[str, List[torch.Tensor]] = {}
         for metrics in self._pending:
             for k, v in metrics.items():

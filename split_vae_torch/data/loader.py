@@ -34,6 +34,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from split_vae_torch.core import tracing
+
 
 @dataclass
 class ArrayDataset:
@@ -80,7 +82,12 @@ def _epoch_index_batches(
     (split_vae_tpu/data/loader.py:40-78)."""
     pc = process_count or 1
     pi = process_index or 0
-    for idx in _epoch_orders(n_total, shuffle, repeat, seed):
+    orders = _epoch_orders(n_total, shuffle, repeat, seed)
+    while True:
+        with tracing.span("loader.epoch"):
+            idx = next(orders, None)
+        if idx is None:
+            return
         if pc > 1:
             per_process = n_total // pc
             idx = idx[pi * per_process:(pi + 1) * per_process]
@@ -131,12 +138,23 @@ def device_resident_batches(
     imgs = torch.from_numpy(np.ascontiguousarray(ds.images)).to(device)
     labels = (torch.from_numpy(np.ascontiguousarray(ds.labels)).to(device)
               if ds.labels is not None else None)
-    for idx in _epoch_orders(len(ds), shuffle, repeat, seed):
-        order = torch.from_numpy(idx).to(device)
-        for start in _batch_starts(len(idx), batch_size, drop_remainder):
+    orders = _epoch_orders(len(ds), shuffle, repeat, seed)
+    starts = iter(())
+    while True:
+        with tracing.span("loader.next"):
+            start = next(starts, None)
+            while start is None:
+                with tracing.span("loader.epoch"):
+                    idx = next(orders, None)
+                    if idx is None:
+                        return
+                    order = torch.from_numpy(idx).to(device)
+                starts = iter(_batch_starts(len(idx), batch_size, drop_remainder))
+                start = next(starts, None)
             sel = order[start:start + batch_size][rows]
             batch = imgs.index_select(0, sel)
-            yield (batch, labels.index_select(0, sel)) if labels is not None else batch
+            out = (batch, labels.index_select(0, sel)) if labels is not None else batch
+        yield out
 
 
 def to_device(x: np.ndarray, device) -> torch.Tensor:
@@ -156,14 +174,19 @@ def _put(batch, device: torch.device):
 def device_prefetch(iterator: Iterator, size: int = 2, device="cuda") -> Iterator:
     """Keep ``size`` batches copied (or copying) to ``device`` ahead of the consumer."""
     device = torch.device(device)
+    iterator = iter(iterator)
     queue = collections.deque()
-    for batch in iterator:
-        queue.append(_put(batch, device))
-        if len(queue) < size:
-            continue
-        yield queue.popleft()
-    while queue:
-        yield queue.popleft()
+    while True:
+        with tracing.span("loader.next"):
+            while len(queue) < size:
+                batch = next(iterator, None)
+                if batch is None:
+                    break
+                queue.append(_put(batch, device))
+            if not queue:
+                return
+            out = queue.popleft()
+        yield out
 
 
 def take(iterator: Iterator, n: int):

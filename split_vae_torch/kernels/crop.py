@@ -40,13 +40,9 @@ import ctypes
 
 import torch
 
+from split_vae_torch.core import tracing
 from split_vae_torch.kernels.build import build as build_library
 from split_vae_torch.kernels.build import check_tensor, stream_of
-
-# Launch counts of the forward and backward kernels: each wrapper adds one
-# where it launches its kernel, and nowhere else.
-fwd_launches = 0
-bwd_launches = 0
 
 # Cells a block in the forward and in the backward without g_img, from the
 # sweep in chip_smoke.py::time_crop (PERF.md).
@@ -157,7 +153,6 @@ def _kernel_shapes(img, ys, xs):
 
 
 def _fwd(img, ys, xs, cells_per_block: int = CELLS_PER_BLOCK_FWD):
-    global fwd_launches
     for name, t in (("img", img), ("ys", ys), ("xs", xs)):
         check_tensor(t, torch.float32, name)
     b, k, h, w, ho, wo, c = _kernel_shapes(img, ys, xs)
@@ -165,13 +160,12 @@ def _fwd(img, ys, xs, cells_per_block: int = CELLS_PER_BLOCK_FWD):
     err = _load().crop_fwd(img.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
                            b, k, h, w, ho, wo, c, cells_per_block, stream_of(img))
     _raise_on(err, "crop_fwd")
-    fwd_launches += 1
+    tracing.count("crop.fwd")
     return out
 
 
 def _bwd(img, ys, xs, g, need_img: bool = True, cells_per_block: int = CELLS_PER_BLOCK_BWD):
     """The backward kernel: (g_img or None, g_ys, g_xs)."""
-    global bwd_launches
     for name, t in (("img", img), ("ys", ys), ("xs", xs), ("g", g)):
         check_tensor(t, torch.float32, name)
     b, k, h, w, ho, wo, c = _kernel_shapes(img, ys, xs)
@@ -184,7 +178,7 @@ def _bwd(img, ys, xs, g, need_img: bool = True, cells_per_block: int = CELLS_PER
                            g_xs.data_ptr(), b, k, h, w, ho, wo, c, cells_per_block,
                            stream_of(img))
     _raise_on(err, "crop_bwd")
-    bwd_launches += 1
+    tracing.count("crop.bwd")
     return g_img, g_ys, g_xs
 
 

@@ -53,15 +53,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from split_vae_torch.core import tracing
 from split_vae_torch.kernels.build import build as build_library
 from split_vae_torch.kernels.build import check_tensor as _check
 from split_vae_torch.kernels.build import stream_of as _stream
 from split_vae_torch.kernels.crop import interp_matrix
-
-# Launch counts of the forward and backward kernels: each wrapper adds one
-# where it launches its kernel, and nowhere else.
-fwd_launches = 0
-bwd_launches = 0
 
 # Canvas rows a block in the forward and cells a block in the backward, from
 # the sweep in chip_smoke.py::time_render (PERF.md).
@@ -249,7 +245,6 @@ def _shapes(objs, ys, xs, z_pres, depth_w, bg):
 def _fwd(objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale,
          rows_per_block: int = ROWS_PER_BLOCK):
     """The forward kernel: (out [B,H,W,C], sums [B,C+2,H,W])."""
-    global fwd_launches
     for name, t in zip(_NAMES, (objs, ys, xs, z_pres, depth_w, bg)):
         _check(t, torch.float32, name)
     _check(seed, torch.int32, "seed")
@@ -261,14 +256,13 @@ def _fwd(objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale,
                              float(noise_scale), out.data_ptr(), sums.data_ptr(),
                              b, k, h, w, hh, ww, c, rows_per_block, _stream(objs))
     _raise_on(err, "render_fwd")
-    fwd_launches += 1
+    tracing.count("render.fwd")
     return out, sums
 
 
 def _bwd(objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale, sums, g,
          cells_per_block: int = CELLS_PER_BLOCK):
     """The backward kernel: the gradients of (objs, ys, xs, z_pres, depth_w, bg)."""
-    global bwd_launches
     _check(g, torch.float32, "g")
     _check(sums, torch.float32, "sums")
     b, k, h, w, hh, ww, c = _shapes(objs, ys, xs, z_pres, depth_w, bg)
@@ -282,7 +276,7 @@ def _bwd(objs, ys, xs, z_pres, depth_w, bg, seed, noise_scale, sums, g,
                              *(t.data_ptr() for t in grads), b, k, h, w, hh, ww, c,
                              cells_per_block, _stream(objs))
     _raise_on(err, "render_bwd")
-    bwd_launches += 1
+    tracing.count("render.bwd")
     return grads
 
 

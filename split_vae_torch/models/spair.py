@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from split_vae_torch.core import tracing
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.nn.common import activation_dtype, init_params
 from split_vae_torch.nn.spair_nets import (
@@ -111,16 +112,19 @@ class _SpairBase(nn.Module):
          z_pres_pre_sigmoid, all_glimpses) = enc
         if z_what_in is not None:
             z_what = z_what_in
-        if training and fused:
-            obj_recon_unnorm, obj_recon_alpha, obj_bbox, x_recon = fused_decode_render(
-                self.decoder, noise, z_what, z_where, z_depth, z_pres, bg_recon, c,
-                self.image_hw, self.render_noise_scale, windowed)
-            obj_full = None
-        else:
-            obj_recon_unnorm, obj_recon_alpha, obj_full, obj_bbox = self.decoder(z_what, z_where)
-            eps = noise.normal(obj_full.shape[:-1] + (c,), per_example=True) if training else None
-            x_recon = render(obj_full, bg_recon, z_depth, z_pres, z_pres_logits, training, c,
-                             eps)
+        with tracing.span("forward.decode_render"):
+            if training and fused:
+                obj_recon_unnorm, obj_recon_alpha, obj_bbox, x_recon = fused_decode_render(
+                    self.decoder, noise, z_what, z_where, z_depth, z_pres, bg_recon, c,
+                    self.image_hw, self.render_noise_scale, windowed)
+                obj_full = None
+            else:
+                obj_recon_unnorm, obj_recon_alpha, obj_full, obj_bbox = self.decoder(z_what,
+                                                                                     z_where)
+                eps = (noise.normal(obj_full.shape[:-1] + (c,), per_example=True) if training
+                       else None)
+                x_recon = render(obj_full, bg_recon, z_depth, z_pres, z_pres_logits, training,
+                                 c, eps)
         return SpairOutput(
             x_recon, z_what, z_what_mean, z_what_sigma, z_where, z_where_mean,
             z_where_sigma, z_depth, z_depth_mean, z_depth_sigma, z_pres,

@@ -41,6 +41,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from split_vae_torch.core import tracing
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.core.state import TrainState
 from split_vae_torch.nn.common import activation_dtype
@@ -93,14 +94,17 @@ def _apply(state: TrainState, total: torch.Tensor, metrics, mesh: Mesh) -> Dict[
     """Backward of ``total``, the data group's mean of the gradients, the
     optimizer update in place; the step's metrics (this rank's)."""
     params = state.params
-    grads = torch.autograd.grad(total, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    reduce_gradients_(grads, state.model, mesh)
-    state.apply_gradients(grads)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    cnt = notfinite_count(state.opt_state)
-    if cnt is not None:
-        metrics["notfinite_updates"] = cnt.to(torch.float32)
+    with tracing.span("step.backward"):
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    with tracing.span("step.reduce"):
+        reduce_gradients_(grads, state.model, mesh)
+    with tracing.span("step.optimizer"):
+        state.apply_gradients(grads)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        cnt = notfinite_count(state.opt_state)
+        if cnt is not None:
+            metrics["notfinite_updates"] = cnt.to(torch.float32)
     return metrics
 
 
@@ -131,11 +135,17 @@ def make_vae_train_step(config, mesh: Mesh = Mesh()) -> Callable:
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
-        check_compute_dtype(config, state.model)
-        noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
-        images = augment(config, normalize_images(batch, "tanh"), noise)
-        total, metrics = loss_of(state.model(images, True, noise), images)
-        return state, _apply(state, total, metrics, mesh)
+        with tracing.span("step"):
+            check_compute_dtype(config, state.model)
+            noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
+            with tracing.span("step.inputs"):
+                images = augment(config, normalize_images(batch, "tanh"), noise)
+            with tracing.span("step.forward"):
+                out = state.model(images, True, noise)
+            with tracing.span("step.loss"):
+                total, metrics = loss_of(out, images)
+            del out  # the outputs the backward does not keep go before it
+            return state, _apply(state, total, metrics, mesh)
 
     return train_step
 
@@ -176,12 +186,17 @@ def make_spair_train_step(config, windowed_render: bool = False,
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
-        check_compute_dtype(config, state.model)
-        noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
-        images = model_inputs(config, normalize_images(batch, "unit"), noise)
-        out = state.model(images, True, noise, windowed=windowed_render)
-        total, metrics = losses.spair_loss(out, images, config, state.step, training=True)
-        return state, _apply(state, total, metrics, mesh)
+        with tracing.span("step"):
+            check_compute_dtype(config, state.model)
+            noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
+            with tracing.span("step.inputs"):
+                images = model_inputs(config, normalize_images(batch, "unit"), noise)
+            with tracing.span("step.forward"):
+                out = state.model(images, True, noise, windowed=windowed_render)
+            with tracing.span("step.loss"):
+                total, metrics = losses.spair_loss(out, images, config, state.step,
+                                                   training=True)
+            return state, _apply(state, total, metrics, mesh)
 
     return train_step
 

@@ -31,6 +31,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from split_vae_torch.core import tracing  # noqa: E402
 from split_vae_torch.kernels import render as tr  # noqa: E402
 from split_vae_torch.kernels import render_windowed as tw  # noqa: E402
 from split_vae_torch.ops import stn as tstn  # noqa: E402
@@ -201,13 +202,13 @@ def test_cpu_wrapper_adds_the_seeded_noise_and_launches_nothing():
     objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a) for a in _inputs(shape, 6))
     ys, xs, _ = tstn.paste_sample_coords(z_where, (s, s), (os_, os_))
     seed = torch.tensor([77], dtype=torch.int32)
-    before = (tr.fwd_launches, tr.bwd_launches)
+    before = tracing.counters()
     got = tr.fused_paste_render(objs, ys, xs, z_pres, depth_w, bg, seed, 0.01)
     want = tr.render_taps_reference(objs, ys, xs, z_pres, depth_w, bg,
                                     0.01 * tr.render_noise(seed, b, g * g, c, s, s))
     assert torch.equal(got, want)
     assert not torch.equal(got, tr.render_taps_reference(objs, ys, xs, z_pres, depth_w, bg))
-    assert (tr.fwd_launches, tr.bwd_launches) == before
+    assert tracing.counters() == before
 
 
 def test_clip_strict_passes_gradient_only_inside():

@@ -23,6 +23,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from split_vae_torch.core import tracing  # noqa: E402
 from split_vae_torch.kernels import render as tr  # noqa: E402
 from split_vae_torch.kernels import render_windowed as tw  # noqa: E402
 from split_vae_torch.ops import stn as tstn  # noqa: E402
@@ -195,12 +196,12 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     objs, z_where, z_pres, depth_w, bg = (torch.from_numpy(a) for a in _inputs(os_, s, 8))
     ys, xs, _ = tstn.paste_sample_coords(z_where, (s, s), (os_, os_))
     seed = torch.tensor([5], dtype=torch.int32)
-    before = (tw.fwd_launches, tw.bwd_launches, tr.fwd_launches, tr.bwd_launches)
+    before = tracing.counters()
     got = tw.fused_paste_render_windowed(objs, ys, xs, z_pres, depth_w, bg, seed, 0.01)
     want = tw.render_windowed_taps_reference(objs, ys, xs, z_pres, depth_w, bg,
                                              0.01 * tr.render_noise(seed, B, K, C, s, s))
     assert torch.equal(got, want)
-    assert (tw.fwd_launches, tw.bwd_launches, tr.fwd_launches, tr.bwd_launches) == before
+    assert tracing.counters() == before
 
 
 def test_cuda_tensors_never_take_the_plain_version():
@@ -234,7 +235,7 @@ def test_train_step_through_the_windowed_render(model_kind, object_size):
                       image_size=(24, 24, 3), dense_bg=True, dense_local=True)
     x = torch.from_numpy(np.random.RandomState(1).uniform(0, 1, (3, 24, 24, 3))
                          .astype(np.float32))
-    before = (tw.fwd_launches, tw.bwd_launches, tr.fwd_launches, tr.bwd_launches)
+    before = tracing.counters()
     results = []
     for windowed in (False, True):
         model = get_spair_model(cfg, device="cpu")
@@ -248,7 +249,7 @@ def test_train_step_through_the_windowed_render(model_kind, object_size):
         np.testing.assert_allclose(m_win[k], m_full[k], rtol=1e-5, err_msg=k)
     for a, b in zip(p_win, p_full):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
-    assert (tw.fwd_launches, tw.bwd_launches, tr.fwd_launches, tr.bwd_launches) == before
+    assert tracing.counters() == before
 
 
 @pytest.mark.parametrize("z_scale", [1.0, 10.0])

@@ -32,12 +32,11 @@ import optax  # noqa: E402
 import split_vae_tpu.models.spair as jax_spair  # noqa: E402
 import split_vae_tpu.nn.spair_nets as jax_nets  # noqa: E402
 import split_vae_tpu.ops.patches as jax_patches  # noqa: E402
+from split_vae_torch.core import tracing  # noqa: E402
 from split_vae_torch.core.config import SpairConfig as PortConfig  # noqa: E402
 from split_vae_torch.core.noise import Noise  # noqa: E402
 from split_vae_torch.core.state import create_train_state as torch_state  # noqa: E402
 from split_vae_torch.interop.flax_params import flax_to_state_dict, load_flax_params  # noqa: E402
-from split_vae_torch.kernels import crop as torch_crop  # noqa: E402
-from split_vae_torch.kernels import render as torch_render  # noqa: E402
 from split_vae_torch.models.spair import get_spair_model as torch_model  # noqa: E402
 from split_vae_torch.ops.patches import augment_batch as torch_augment  # noqa: E402
 from split_vae_torch.train import losses as torch_losses  # noqa: E402
@@ -175,11 +174,9 @@ def both(request):
         if variant == STEP_VARIANT:
             new_state, j_step_metrics = jax_step(jax_cfg)(state, jnp.asarray(x))
             tstate = torch_state(tmodel, spair_optimizer(port_cfg.learning_rate), seed=0)
-            launches = (torch_render.fwd_launches, torch_render.bwd_launches,
-                        torch_crop.fwd_launches, torch_crop.bwd_launches)
+            launches = tracing.counters()
             tstate, t_step_metrics = torch_step(port_cfg)(tstate, torch.from_numpy(x), replay)
-            assert launches == (torch_render.fwd_launches, torch_render.bwd_launches,
-                                torch_crop.fwd_launches, torch_crop.bwd_launches)
+            assert tracing.counters() == launches
             result.update(
                 step_metrics=(j_step_metrics, t_step_metrics),
                 params=(flax_to_state_dict(jax.tree.map(np.asarray, new_state.params), tmodel),
