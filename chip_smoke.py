@@ -61,10 +61,15 @@ row-windowed, and the STN glimpse crop), and the VAE-family train steps
       fresh Adam state (the bias correction and the anneals' starts), the
       draws replayed, held at tests/test_torch_trajectory.py's
       tolerances: each step's metrics at rtol 1e-4, the parameters and both
-      Adam moments after the last step within 1e-4 of each tensor's L2 norm.
+      Adam moments after the last step within 1e-4 of each tensor's L2 norm;
+  P17 config #4 (SPLIT-GMVAE on CelebA 64x64) through vae_main with the
+      README's flags (beta 120, alpha 40, y_size 30, patch 8, -no_label,
+      -viz) and -synthetic_data: 40 steps with evals and checkpoints every 20,
+      then --resume to step 60, with the GM encoder's spans
+      (forward.gm_encoder, gm.y) on and their calls logged.
 
-P6, P7, P9 and P12 also check the PNG artifacts of every eval: the names the
-JAX loop writes for the model and flags, each file decoded by
+P6, P7, P9, P12 and P17 also check the PNG artifacts of every eval: the names
+the JAX loop writes for the model and flags, each file decoded by
 split_vae_torch/viz/png.py at its canvas's shape, no "[viz] ... skipped"
 line; the count, the bytes and the viz ms an eval are logged.
 
@@ -175,7 +180,7 @@ Phases, each of which must pass:
      device memory, beside the card's name and power limit;
   6. one JSON line of the kernels (the fused optimizer's row last: its
      times at config #5's leaves, its launches on each main path that
-     counts them, P1-P12 but the classifier's), then the card, then
+     counts them, P1-P12 and P17 but the classifier's), then the card, then
      {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -2045,6 +2050,41 @@ def check_probe_records(name, records, probe_keys, min_classifier_acc=0.9):
         + "; " + ", ".join(f"{k} {tests[-1]['test/' + k]:.4f}" for k in probe_keys))
 
 
+GM_SPANS = ("forward.gm_encoder", "gm.y")
+
+
+def run_p17(torch, np, cli_args):
+    """P17: config #4 through vae_main with the README's flags
+    (``CONFIG4_ARGV``, its step count overridden) on synthetic CelebA 64x64, 40 steps,
+    evals and checkpoints every 20, --resume to 60, the -viz PNGs checked,
+    with tracing on: the GM encoder's spans open once a forward of the
+    encoder (the train steps', the evals' and the figures'), ``gm.y`` inside
+    every ``forward.gm_encoder``. Returns the launch counts."""
+    from split_vae_torch.cli import vae_main
+    from split_vae_torch.core import tracing
+    from split_vae_torch.core.config import CONFIG4_ARGV, CONFIG4_IMAGE_HW
+
+    tracing.drain()
+    tracing.enable(True)
+    try:
+        launches, loop_rate, _ = run_cli_path(
+            torch, np, "P17", vae_main.main, list(CONFIG4_ARGV) + cli_args, ("test/",),
+            pngs=vae_pngs(CONFIG4_IMAGE_HW, "lggmvae", svhn=False, viz=True, last_batch=64,
+                          y_size=30))
+    finally:
+        tracing.enable(False)
+        records = tracing.drain()
+    calls = {name: sum(r.name == name for r in records) for name in GM_SPANS + ("step",)}
+    nested = all(r.parent == "forward.gm_encoder" for r in records if r.name == "gm.y")
+    if not nested or calls["gm.y"] != calls["forward.gm_encoder"] \
+            or calls["forward.gm_encoder"] <= calls["step"]:
+        fail(f"P17: span calls {calls}, gm.y always inside forward.gm_encoder: {nested}")
+    log(f"P17: span calls over both runs {calls} (train steps, evals and figures); the loop's "
+        f"train/imgs_per_sec at step 40 {loop_rate:.1f} (config #4, B=64; steps 21-40 and "
+        f"the step-20 checkpoint's write, tracing on)")
+    return launches
+
+
 # ---------------------------------------------------------------- P13, P14
 
 P13_STEPS = 3
@@ -2099,12 +2139,16 @@ def timed_collectives(torch, spans):
     and the model group's all-gathers of the sharded layers' outputs and
     all-reduces of their inputs' gradients (``parallel/tensor.py``,
     "gather", "model_reduce"). Appends (kind, bytes, start, end) to
-    ``spans``; returns a function that undoes it."""
+    ``spans``; returns a function that undoes it. A call made while a step
+    is captured as a CUDA graph (``train/graphs.py``: a 1-rank mesh's VAE
+    step) is not timed."""
     from split_vae_torch.parallel import tensor as tensor_mod
     from split_vae_torch.train import steps as steps_mod
 
     def timed(kind, fn, nbytes):
         def call(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)  # inside a captured step, an event is the graph's
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
@@ -3080,6 +3124,9 @@ def main() -> None:
         pngs=vae_pngs(CONFIG3_IMAGE_HW, "gmvae", svhn=True, viz=True, last_batch=64, y_size=30))
     check_probe_records("P9 gmvae", records, ())
     launches["P9"] = {k: launches["P9"][k] + p9[k] + p9_gm[k] for k in KERNELS}
+    torch.cuda.empty_cache()
+    # Config #4: SPLIT-GMVAE at 64x64 through vae_main with the README's flags.
+    launches["P17"] = run_p17(torch, np, cli_args)
     torch.cuda.empty_cache()
     # Data parallelism: config #5 in 2 processes on the card, config #2 on NCCL;
     # tensor parallelism: config #5 in a 2 x 2 grid on the card, held to P13's

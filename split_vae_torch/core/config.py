@@ -6,7 +6,8 @@ VaeConfig, SpairConfig and ClassifierConfig), with the reference CLIs' parsers
 gives BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as
 ``bench.py::measure_spair`` sets it, ``config2`` BASELINE config #2 (LGVae on
 CelebA 64x64) as ``bench.py::measure`` sets it, ``config3`` BASELINE config #3
-(SPLIT-GMVAE on SVHN 32x32); ``config_bg_spair`` and
+(SPLIT-GMVAE on SVHN 32x32), ``config4`` BASELINE config #4 (SPLIT-GMVAE on
+CelebA 64x64); ``config_bg_spair`` and
 ``config_glimpse_spair`` give two more full-width configurations at the
 SpairConfig defaults.
 """
@@ -232,6 +233,22 @@ CONFIG3_IMAGE_HW = (32, 32)
 
 def config3(**overrides) -> VaeConfig:
     return VaeConfig(**{**CONFIG3, **overrides})
+
+
+# BASELINE config #4: LGGMVae (SPLIT-GMVAE) on CelebA 64x64, the README's
+# command (``CONFIG4_ARGV``); the batch is the CLI's default 64. ``-viz`` only
+# shapes the evals' figures, so ``config4`` leaves it at its default.
+CONFIG4_ARGV = ("--model", "lggmvae", "--beta", "120", "--alpha", "40", "--y_size", "30",
+                "--patch_size", "8", "--dataset", "celeba64", "-no_label", "-viz",
+                "--training_steps", "3000000")
+CONFIG4 = dict(model="lggmvae", dataset="celeba64", no_label=True, beta=120.0, alpha=40.0,
+               y_size=30, tau=0.4, patch_size=8, batch_size=64, global_latent_dims=128,
+               local_latent_dims=128, training_steps=3_000_000)
+CONFIG4_IMAGE_HW = (64, 64)
+
+
+def config4(**overrides) -> VaeConfig:
+    return VaeConfig(**{**CONFIG4, **overrides})
 
 
 def config_bg_spair(**overrides) -> SpairConfig:

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from split_vae_torch.core import tracing
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.nn.common import Conv, Dense, dropout, flatten
 from split_vae_torch.ops.distributions import gumbel_softmax, reparameterize
@@ -139,27 +140,31 @@ class GMVaeEncoder(nn.Module):
 
     def apply_draws(self, x: torch.Tensor, u: torch.Tensor, eps: torch.Tensor,
                     keeps: Optional[Tuple[torch.Tensor, torch.Tensor]]):
-        """The forward on given draws; ``keeps`` None is flax's deterministic dropout."""
-        h = F.elu(self.h_conv1(x))
-        h = F.elu(self.h_conv2(h))
-        h = flatten(F.elu(self.h_conv3(h)))
+        """The forward on given draws; ``keeps`` None is flax's deterministic dropout.
 
-        y_hidden = F.elu(self.y_dense1(h))
-        if keeps is not None:
-            y_hidden = dropout(y_hidden, keeps[0], GM_DROPOUT)
-        y_hidden = F.elu(self.y_dense2(y_hidden))
-        y_logits = self.y_head(y_hidden)
-        y = gumbel_softmax(y_logits, self.tau, u=u)
+        Spans: ``forward.gm_encoder`` holds the whole of it, ``gm.y`` inside
+        it the y block, the Gumbel softmax and ``encode_y``."""
+        with tracing.span("forward.gm_encoder"):
+            h = F.elu(self.h_conv1(x))
+            h = F.elu(self.h_conv2(h))
+            h = flatten(F.elu(self.h_conv3(h)))
 
-        z_prior_mean, z_prior_sig = self.encode_y(y)
+            with tracing.span("gm.y"):
+                y_hidden = F.elu(self.y_dense1(h))
+                if keeps is not None:
+                    y_hidden = dropout(y_hidden, keeps[0], GM_DROPOUT)
+                y_hidden = F.elu(self.y_dense2(y_hidden))
+                y_logits = self.y_head(y_hidden)
+                y = gumbel_softmax(y_logits, self.tau, u=u)
+                z_prior_mean, z_prior_sig = self.encode_y(y)
 
-        h_top = F.elu(self.h_top_dense(y))
-        if keeps is not None:
-            h = dropout(h, keeps[1], GM_DROPOUT)
-        h = F.elu(self.e1(h)) + h_top
-        z_mean = self.z_mean_head(h)
-        z_sig = F.softplus(self.z_sig_head(h))
-        z = reparameterize(z_mean, z_sig, eps)
+            h_top = F.elu(self.h_top_dense(y))
+            if keeps is not None:
+                h = dropout(h, keeps[1], GM_DROPOUT)
+            h = F.elu(self.e1(h)) + h_top
+            z_mean = self.z_mean_head(h)
+            z_sig = F.softplus(self.z_sig_head(h))
+            z = reparameterize(z_mean, z_sig, eps)
         return z, z_mean, z_sig, y, y_logits, z_prior_mean, z_prior_sig
 
     def encode_y(self, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,7 +7,8 @@ updates. A VAE-family train step (LGVae, LGGMVae, GMVae): uint8 batch ->
 [-1, 1] floats -> the augmentation on the device -> forward -> the model's
 loss -> backward -> Adam, skip of non-finite updates. GMVae too gets the
 augmented 6-channel input and reads its first 3 channels, so the
-augmentation's draws are spent as in the JAX step.
+augmentation's draws are spent as in the JAX step. On one process the VAE
+step runs on the card as one CUDA graph (``train/graphs.py``).
 
 ``config.compute_dtype``: 'float32', or 'bfloat16', where every Dense and
 Conv of the model computes in bfloat16 (``nn/common.py``) while the
@@ -48,6 +49,7 @@ from split_vae_torch.nn.common import activation_dtype
 from split_vae_torch.parallel.mesh import Mesh, reduce_gradients_
 from split_vae_torch.ops.patches import augment_batch, augment_draws
 from split_vae_torch.train import losses
+from split_vae_torch.train.graphs import GraphedStep
 from split_vae_torch.train.optim import notfinite_count
 
 
@@ -121,7 +123,7 @@ def vae_loss_fn(config) -> Callable:
     raise NotImplementedError(config.model)
 
 
-def make_vae_train_step(config, mesh: Mesh = Mesh()) -> Callable:
+def make_vae_train_step(config, mesh: Mesh = Mesh(), graphed: bool = True) -> Callable:
     """Returns train_step(state, batch, replay=None) -> (state, metrics) for
     LGVae, LGGMVae or GMVae (config.model); ``batch`` is this rank's rows.
 
@@ -129,23 +131,33 @@ def make_vae_train_step(config, mesh: Mesh = Mesh()) -> Callable:
     model's (k_sample, then the GM models' dropout keep masks; see their
     docstrings). ``replay`` (tests only) lists them in that order; otherwise
     they come from ``state.generator``.
+
+    On one process the step runs as one CUDA graph on the card once it has
+    seen a batch shape (``train/graphs.py``); ``graphed=False`` keeps every
+    step eager.
     """
     loss_of = vae_loss_fn(config)
     use_fp32()
 
+    def body(state: TrainState, batch: torch.Tensor, noise: Noise) -> Dict[str, torch.Tensor]:
+        check_compute_dtype(config, state.model)
+        with tracing.span("step.inputs"):
+            images = augment(config, normalize_images(batch, "tanh"), noise)
+        with tracing.span("step.forward"):
+            out = state.model(images, True, noise)
+        with tracing.span("step.loss"):
+            total, metrics = loss_of(out, images)
+        del out  # the outputs the backward does not keep go before it
+        return _apply(state, total, metrics, mesh)
+
+    if graphed and mesh.world == 1:
+        return GraphedStep(body)
+
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         with tracing.span("step"):
-            check_compute_dtype(config, state.model)
             noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
-            with tracing.span("step.inputs"):
-                images = augment(config, normalize_images(batch, "tanh"), noise)
-            with tracing.span("step.forward"):
-                out = state.model(images, True, noise)
-            with tracing.span("step.loss"):
-                total, metrics = loss_of(out, images)
-            del out  # the outputs the backward does not keep go before it
-            return state, _apply(state, total, metrics, mesh)
+            return state, body(state, batch, noise)
 
     return train_step
 

@@ -1,7 +1,8 @@
 """The port's tracer (split_vae_torch/core/tracing.py) on the CPU: spans
 record nothing and enter no ``record_function`` while tracing is off; with
 tracing on, a train step of each family gives the span tree of its layers
-once a call, with self times that add up; the spans reach a running
+once a call (the GM models' encoder and its y block inside the forward),
+with self times that add up; the spans reach a running
 ``torch.profiler``; the loader's spans cover the making of a batch and not
 the consumer's time; ``maybe_profile`` turns tracing on inside its block
 only; the kernels' launch counters count."""
@@ -29,7 +30,7 @@ from split_vae_torch.data.loader import (  # noqa: E402
 )
 from split_vae_torch.models.spair import get_spair_model  # noqa: E402
 from split_vae_torch.models.vae import get_vae_model  # noqa: E402
-from split_vae_torch.train.optim import spair_optimizer, vae_optimizer  # noqa: E402
+from split_vae_torch.train.optim import gm_optimizer, spair_optimizer, vae_optimizer  # noqa: E402
 from split_vae_torch.train.steps import make_spair_train_step, make_vae_train_step  # noqa: E402
 
 # (span, parent) in the order the spans start, one train step.
@@ -37,8 +38,11 @@ SPAIR_TREE = [("step", None), ("step.inputs", "step"), ("step.forward", "step"),
               ("forward.decode_render", "step.forward"), ("step.loss", "step"),
               ("step.backward", "step"), ("step.reduce", "step"), ("step.optimizer", "step")]
 VAE_TREE = [row for row in SPAIR_TREE if row[0] != "forward.decode_render"]
-PORT_SPANS = {name for name, _ in SPAIR_TREE} | {"loader.next", "loader.epoch",
-                                                 "metrics.update", "metrics.drain"}
+# The GM models' encoder: its forward, and the y block inside it.
+GM_TREE = VAE_TREE[:3] + [("forward.gm_encoder", "step.forward"),
+                          ("gm.y", "forward.gm_encoder")] + VAE_TREE[3:]
+PORT_SPANS = {name for name, _ in SPAIR_TREE + GM_TREE} | {"loader.next", "loader.epoch",
+                                                           "metrics.update", "metrics.drain"}
 
 
 @pytest.fixture(autouse=True)
@@ -74,7 +78,17 @@ def _vae_step():
     return lambda: step(state, raw)
 
 
-FAMILIES = {"spair": (_spair_step, SPAIR_TREE), "vae": (_vae_step, VAE_TREE)}
+def _gm_step():
+    cfg = VaeConfig(model="lggmvae", batch_size=4, patch_size=2, beta=1.0, y_size=5,
+                    global_latent_dims=8, local_latent_dims=8)
+    state = create_train_state(get_vae_model(cfg, (16, 16), device="cpu"), gm_optimizer(1e-4))
+    raw = torch.from_numpy(np.random.RandomState(0).randint(0, 255, (4, 16, 16, 3), np.uint8))
+    step = make_vae_train_step(cfg)
+    return lambda: step(state, raw)
+
+
+FAMILIES = {"spair": (_spair_step, SPAIR_TREE), "vae": (_vae_step, VAE_TREE),
+            "gm": (_gm_step, GM_TREE)}
 
 
 @pytest.fixture(scope="module", params=sorted(FAMILIES))
