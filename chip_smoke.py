@@ -1668,7 +1668,8 @@ def resize_conv_turns(torch, name, train_step, state, batches, batch_size):
 
 def run_resize_conv(torch, np):
     """The resize2x -> conv phase: the sites, then P1, P3, P5, P10 and P11 in
-    turns of the chain and the fused forms, beside the card."""
+    turns of the chain and the fused forms, beside the card. The steps run
+    eagerly: a captured graph would keep the forms it was captured with."""
     from split_vae_torch.core.config import (
         CONFIG2_IMAGE_HW,
         config2,
@@ -1694,11 +1695,11 @@ def run_resize_conv(torch, np):
                       ("P11", config2(compute_dtype="bfloat16"))):
         if name in ("P5", "P11"):
             model, tx = build_vae_model(cfg, CONFIG2_IMAGE_HW, device="cuda")
-            step, batches = make_vae_train_step(cfg), vae_batches
+            step, batches = make_vae_train_step(cfg, graphed=False), vae_batches
         else:
             model = get_spair_model(cfg, device="cuda")
             tx, step, batches = (spair_optimizer(cfg.learning_rate),
-                                 make_spair_train_step(cfg), spair_batches)
+                                 make_spair_train_step(cfg, graphed=False), spair_batches)
         state = create_train_state(model, tx, seed=cfg.seed)
         resize_conv_turns(torch, name, step, state, batches, cfg.batch_size)
         del model, state

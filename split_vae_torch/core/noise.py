@@ -19,6 +19,10 @@ the render seed) is ``per_example=False`` and the same on every rank. The
 marking is explicit at every draw site; with one rank it may be left out
 (the eval sweeps and the figures run on one rank). Replayed draws follow the
 same rule: a per-example one is replayed at the global shape and sliced.
+
+``step()`` hands out the train step's count on the device. It is no draw,
+but like the render seed it is a value of the step that a CUDA graph must
+not bake in (``train/graphs.py``), so the body reads it from here.
 """
 
 from __future__ import annotations
@@ -33,16 +37,19 @@ class Noise:
     unless a check runs a model in float64); a draw may ask for its own, as the
     JAX package draws a sample in the dtype of the tensor it perturbs (bfloat16
     under ``--compute_dtype bfloat16``). ``rank`` and ``world`` place this
-    process's rows in the global batch: the mesh's data index and data size."""
+    process's rows in the global batch: the mesh's data index and data size.
+    ``step`` is the train step's count, which ``step()`` hands out."""
 
     def __init__(self, generator: torch.Generator,
                  replay: Optional[Iterable[torch.Tensor]] = None,
-                 dtype: torch.dtype = torch.float32, rank: int = 0, world: int = 1):
+                 dtype: torch.dtype = torch.float32, rank: int = 0, world: int = 1,
+                 step: int = 0):
         self.generator = generator
         self.device = generator.device
         self.dtype = dtype
         self.rank, self.world = rank, world
         self._replay = None if replay is None else list(replay)
+        self._step = step
 
     def _next(self, shape, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if not self._replay:
@@ -106,8 +113,17 @@ class Noise:
         """An int32 seed in [0, 2^31 - 1), as a one-element tensor on the device
         (the render kernels read it there, so drawing it needs no sync); the
         same on every rank."""
-        return torch.randint(0, 2**31 - 1, (1,), generator=self.generator,
+        return self.make_seed((1,))
+
+    def make_seed(self, shape) -> torch.Tensor:
+        """The draw ``seed()`` makes, at ``shape``."""
+        return torch.randint(0, 2**31 - 1, shape, generator=self.generator,
                              device=self.device, dtype=torch.int32)
+
+    def step(self) -> torch.Tensor:
+        """The train step's count as a 0-d float32 tensor on the device, made
+        by a fill kernel: no copy from the host (exact up to 2^24 steps)."""
+        return torch.full((), self._step, dtype=torch.float32, device=self.device)
 
     def image_seed(self, batch: int) -> torch.Tensor:
         """The render kernels' seed for this rank's ``batch`` images: ``seed()``

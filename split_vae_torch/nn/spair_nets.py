@@ -19,7 +19,11 @@ from split_vae_torch.kernels import render as render_kernels
 from split_vae_torch.kernels import render_windowed as windowed_kernels
 from split_vae_torch.nn.common import Conv, Dense, flatten
 from split_vae_torch.nn.pixel_shuffle import Resize2xConv
-from split_vae_torch.ops.distributions import concrete_binary_pre_sigmoid_sample, reparameterize
+from split_vae_torch.ops.distributions import (
+    as_like,
+    concrete_binary_pre_sigmoid_sample,
+    reparameterize,
+)
 from split_vae_torch.ops.stn import paste_sample_coords, stn_crop, stn_paste
 
 
@@ -454,8 +458,7 @@ def fused_decode_render(decoder: SpairDecoder, noise: Noise, z_what, z_where, z_
     b = concat.shape[0]
     zp = z_pres.reshape(b, -1).float()
     wd = (torch.sigmoid(-z_depth.float()) + 0.5).reshape(b, -1)
-    bg_img = torch.broadcast_to(torch.as_tensor(bg_recon, dtype=torch.float32,
-                                                device=concat.device),
+    bg_img = torch.broadcast_to(as_like(bg_recon, concat),
                                 (b, image_hw[0], image_hw[1], num_channel))
     render = (windowed_kernels.fused_paste_render_windowed if windowed
               else render_kernels.fused_paste_render)
@@ -492,6 +495,5 @@ def render(obj_full_recon_unnorm: torch.Tensor, background_img, z_depth: torch.T
     else:
         zp = torch.clamp_min(torch.round(torch.sigmoid(z_pres_logits.reshape(b, k))), 1e-8)
         noise = None
-    bg = torch.as_tensor(background_img, dtype=torch.float32,
-                         device=obj_full_recon_unnorm.device)
+    bg = as_like(background_img, obj_full_recon_unnorm)
     return render_kernels.composite(obj_full_recon_unnorm, zp, depth_w, bg, noise)

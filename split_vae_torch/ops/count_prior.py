@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from split_vae_torch.ops.distributions import concrete_binary_sample_kl, safe_log
+from split_vae_torch.ops.distributions import as_like, concrete_binary_sample_kl, safe_log
 
 
 def z_pres_count_kl(z_pres: torch.Tensor, z_pres_logits: torch.Tensor,
@@ -17,14 +17,14 @@ def z_pres_count_kl(z_pres: torch.Tensor, z_pres_logits: torch.Tensor,
     """Count-prior KL for z_pres [B, gh, gw, 1], batch-meaned and summed over cells.
 
     ``prior_prob`` is the geometric prior's success probability (annealed
-    0 -> 0.99 in training).
+    0 -> 0.99 in training): a Python number or a 0-d tensor on the device.
     """
     b = z_pres.shape[0]
     k = z_pres[0].numel()
     dtype, device = z_pres.dtype, z_pres.device
 
     support = torch.arange(k + 1, dtype=dtype, device=device)
-    count_prior_prob = 1.0 - torch.as_tensor(prior_prob, dtype=dtype, device=device)
+    count_prior_prob = 1.0 - as_like(prior_prob, z_pres)
     dist = (1.0 - count_prior_prob) * torch.pow(count_prior_prob, support)
     dist = dist / torch.clamp_min(torch.sum(dist), 1e-6)
     count_distribution = dist[None, :].expand(b, k + 1)

@@ -8,7 +8,7 @@ the ``torch.Generator`` they are handed.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -59,8 +59,32 @@ def safe_log(value: torch.Tensor, replacement_value: float = -100.0,
     return _SafeLog.apply(value, replacement_value, eps)
 
 
-def _as(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+def as_like(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s dtype on its device: a tensor as it is (cast where
+    it is not), a Python number by a fill kernel, which copies nothing from
+    the host and so leaves a train step free of syncs."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=like.dtype, device=like.device)
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+_CONSTANT_LOGS: Dict[tuple, torch.Tensor] = {}
+
+
+def _safe_log_of(x, like: torch.Tensor) -> torch.Tensor:
+    """safe_log(x): of a tensor in autograd; of a Python number computed on
+    ``like``'s device once a dtype and device and kept (a constant needs no
+    gradient). Nothing is kept while a CUDA graph is being captured, whose
+    memory the graph owns."""
+    if isinstance(x, torch.Tensor):
+        return safe_log(x)
+    key = (x, like.dtype, like.device)
+    got = _CONSTANT_LOGS.get(key)
+    if got is None:
+        got = safe_log(as_like(x, like)).detach()
+        if not (like.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _CONSTANT_LOGS[key] = got
+    return got
 
 
 def gaussian_kl(mean: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -73,8 +97,8 @@ def gaussian_kl(mean: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 
 def gaussian_kl_two(mean1: torch.Tensor, sig1: torch.Tensor, mean2, sig2) -> torch.Tensor:
     """KL(N(mean1, sig1^2) || N(mean2, sig2^2)) with plain logs (vae/trainer.py:17-18)."""
-    mean2 = _as(mean2, mean1)
-    sig2 = _as(sig2, sig1)
+    mean2 = as_like(mean2, mean1)
+    sig2 = as_like(sig2, sig1)
     kl = (torch.log(sig2) - torch.log(sig1)
           + (torch.square(sig1) + torch.square(mean1 - mean2)) / (2.0 * torch.square(sig2))
           - 0.5)
@@ -151,9 +175,10 @@ def gaussian_kl_safe(mean: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 
 def gaussian_kl_two_safe(mean1: torch.Tensor, sig1: torch.Tensor, mean2, sig2) -> torch.Tensor:
     """KL(N(mean1, sig1^2) || N(mean2, sig2^2)) with safe logs, batch-meaned."""
-    mean2 = _as(mean2, mean1)
-    sig2 = _as(sig2, sig1)
-    kl = (safe_log(sig2) - safe_log(sig1)
+    log_sig2 = _safe_log_of(sig2, sig1)
+    mean2 = as_like(mean2, mean1)
+    sig2 = as_like(sig2, sig1)
+    kl = (log_sig2 - safe_log(sig1)
           + (torch.square(sig1) + torch.square(mean1 - mean2)) / (2.0 * torch.square(sig2))
           - 0.5)
     kl = torch.broadcast_to(kl, torch.broadcast_shapes(kl.shape, mean1.shape))

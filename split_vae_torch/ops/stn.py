@@ -24,8 +24,11 @@ DEFAULT_CELL_RATIO = (2.0 * 12.0) / 48.0
 
 
 @functools.lru_cache(maxsize=None)
-def _cell_bias(grid_h: int, grid_w: int, cell_ratio: float) -> Tuple[tuple, tuple]:
-    """Per-cell (tx, ty) center biases: i_p = (2-r)*i/(n-1) - (1 - r/2)."""
+def _cell_bias(grid_h: int, grid_w: int, cell_ratio: float,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-cell (tx [1, gw], ty [gh, 1]) center biases on ``device``:
+    i_p = (2-r)*i/(n-1) - (1 - r/2). Copied from the host once a grid and
+    device, so a train step copies nothing and a CUDA graph may hold them."""
 
     def axis(n):
         if n == 1:
@@ -33,16 +36,15 @@ def _cell_bias(grid_h: int, grid_w: int, cell_ratio: float) -> Tuple[tuple, tupl
         return tuple((2.0 - cell_ratio) * i / (n - 1) - (1.0 - 0.5 * cell_ratio)
                      for i in range(n))
 
-    return axis(grid_w), axis(grid_h)
+    return (torch.tensor(axis(grid_w), dtype=torch.float32, device=device)[None, :],
+            torch.tensor(axis(grid_h), dtype=torch.float32, device=device)[:, None])
 
 
 def zwhere_to_params(z_where: torch.Tensor, cell_ratio: float = DEFAULT_CELL_RATIO):
     """Raw z_where [B, gh, gw, 4] -> (sx, sy, tx, ty), each [B, gh*gw]."""
     z_where = z_where.float()
     b, gh, gw, _ = z_where.shape
-    bias_tx_1d, bias_ty_1d = _cell_bias(gh, gw, cell_ratio)
-    bias_tx = torch.tensor(bias_tx_1d, dtype=torch.float32, device=z_where.device)[None, :]
-    bias_ty = torch.tensor(bias_ty_1d, dtype=torch.float32, device=z_where.device)[:, None]
+    bias_tx, bias_ty = _cell_bias(gh, gw, cell_ratio, z_where.device)
     sx = 0.5 * torch.sigmoid(z_where[..., 0])
     sy = 0.5 * torch.sigmoid(z_where[..., 1])
     tx = 0.5 * torch.tanh(z_where[..., 2]) + bias_tx[None]

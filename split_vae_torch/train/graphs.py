@@ -1,22 +1,27 @@
-"""The VAE family's train step on one card as one CUDA graph.
+"""A train step on one card as one CUDA graph.
 
-Eagerly, a VAE-family train step (``train/steps.py::make_vae_train_step``)
-launches 700-800 kernels from Python and autograd, and on an H100 the host
-takes about as long to launch them as the card takes to run them; the step
-then waits on the host, and its time follows the host's speed. Captured
-once as a CUDA graph, the step is one launch and its time is the card's.
+Eagerly, a train step (``train/steps.py``) launches hundreds to thousands of
+kernels from Python and autograd, and on an H100 the host can take longer to
+launch them than the card takes to run them; the step then waits on the host,
+and its time follows the host's speed. Captured once as a CUDA graph, the
+step is one launch and its time is the card's.
 
 ``GraphedStep`` wraps the step's body, ``body(state, batch, noise) ->
 metrics``, which updates the state in place:
 
 - each batch shape is first run eagerly, and that run records the step's
   draws from ``core/noise.py::Noise`` (the shape of each and the call that
-  makes it);
+  makes it), which of them are render seeds (``Noise.seed``), and whether
+  the body reads the step's count (``Noise.step``);
 - the next call of that shape captures the body over a static copy of the
-  batch and one static buffer a draw, then replays the graph. Every later
-  call copies its batch in, makes the same draws from the state's generator
-  in the same order (or copies in the replayed ones), so the values are
-  those the eager step would draw, and replays;
+  batch, one static buffer a draw and, where the body reads it, a static
+  step. Every later call copies its batch in, makes the same draws from the
+  state's generator in the same order (or copies in the replayed ones),
+  fills the step buffer with ``state.step`` (one fill kernel), and replays.
+  So the values are those the eager step would use, and the generator
+  advances as the eager step's does. A render seed is drawn from the
+  generator under replayed draws too, as ``Noise.seed`` is, and is no entry
+  of the replayed list;
 - the graph reads and writes the parameters and the optimizer's state in
   place (the fused optimizer of ``kernels/adam.py`` does): a call whose
   state holds other tensors (a state restored or replaced) records again,
@@ -29,8 +34,10 @@ metrics``, which updates the state in place:
 The step runs eagerly on the CPU, with the port's tracing on (the spans
 need each step's Python), under autograd's anomaly mode (``--debug_nans``,
 which reads every gradient on the host), where a draw has no static form (a
-permutation, a render seed) and where the capture fails (a body that waits
-for the card).
+permutation) and where the capture fails (a body that waits for the card).
+The counters ``step.graphed`` (a replay) and ``step.eager`` (a call that ran
+the body's Python eagerly: a recording, a fallback, tracing, anomaly mode,
+the CPU) say which path each call took.
 Data and tensor parallelism keep the eager step (``steps.py`` decides).
 """
 
@@ -50,11 +57,14 @@ Body = Callable[[TrainState, torch.Tensor, Noise], Dict[str, torch.Tensor]]
 
 class _Recorder(Noise):
     """A Noise that records each draw as it hands it out: the global shape,
-    the dtype a replay of it takes and the call that makes it."""
+    the dtype a replay of it takes and the call that makes it; the render
+    seeds among them, and whether the body reads the step."""
 
-    def __init__(self, generator, replay=None):
-        super().__init__(generator, replay)
+    def __init__(self, generator, replay=None, step: int = 0):
+        super().__init__(generator, replay, step=step)
         self.draws: List[Tuple[tuple, torch.dtype, Callable]] = []
+        self.seeds: List[int] = []  # positions of the render seeds in ``draws``
+        self.reads_step = False
         self.static = True
 
     def _draw(self, shape, per_example, dtype, make):
@@ -66,8 +76,32 @@ class _Recorder(Noise):
         return super().permutation(n)
 
     def seed(self):
-        self.static = False
+        self.seeds.append(len(self.draws))
+        self.draws.append(((1,), torch.int32, self.make_seed))
         return super().seed()
+
+    def step(self):
+        self.reads_step = True
+        return super().step()
+
+
+class _Static(Noise):
+    """The Noise of a captured body: its draws, render seeds and step are the
+    shape's static buffers, which are filled before each replay."""
+
+    def __init__(self, generator, shape: "_Shape"):
+        super().__init__(generator, [b for i, b in enumerate(shape.buffers)
+                                     if i not in shape.seeds])
+        self._seeds = [shape.buffers[i] for i in shape.seeds]
+        self._static_step = shape.step
+
+    def seed(self):
+        return self._seeds.pop(0)
+
+    def step(self):
+        if self._static_step is None:  # not read when recorded: the capture fails
+            raise RuntimeError("the body read the step, which its recording did not")
+        return self._static_step
 
 
 def cuda_capture(fn: Callable[[], Dict[str, torch.Tensor]]):
@@ -93,8 +127,11 @@ class _Shape:
     state: tuple                      # ``fingerprint`` of the state it was recorded on
     device: torch.device
     draws: List[Tuple[tuple, torch.dtype, Callable]]
+    seeds: List[int]                  # the render seeds' positions in ``draws``
+    reads_step: bool
     eager: bool                       # no graph for this shape: run it eagerly
     buffers: List[torch.Tensor] = field(default_factory=list)
+    step: Optional[torch.Tensor] = None  # the step's count, where the body reads it
     batch: Optional[torch.Tensor] = None
     replay: Optional[Callable[[], None]] = None
     out: Dict[str, torch.Tensor] = field(default_factory=dict)
@@ -115,8 +152,12 @@ class GraphedStep:
 
     def eager(self, state: TrainState, batch: torch.Tensor,
               replay: Optional[Sequence[torch.Tensor]] = None):
+        return self._eager(state, batch, Noise(state.generator, replay, step=state.step))
+
+    def _eager(self, state: TrainState, batch: torch.Tensor, noise: Noise):
+        tracing.count("step.eager")
         with tracing.span("step"):
-            return state, self.body(state, batch, Noise(state.generator, replay))
+            return state, self.body(state, batch, noise)
 
     def __call__(self, state: TrainState, batch: torch.Tensor,
                  replay: Optional[Sequence[torch.Tensor]] = None):
@@ -129,49 +170,52 @@ class GraphedStep:
             return self.eager(state, batch, replay)
         if shape is None or shape.state != fingerprint(state):
             return self._record(key, state, batch, replay)
-        drawn = self._draw(shape, replay)
-        if drawn is None:  # replayed draws that are not the recorded ones
+        if not self._draw(shape, state, replay):  # replayed draws that are not the recorded ones
             return self.eager(state, batch, replay)
-        if shape.replay is None and not self._capture(shape, state, batch, drawn):
-            return self.eager(state, batch, drawn)
+        if shape.replay is None and not self._capture(shape, state, batch):
+            return self._eager(state, batch, _Static(state.generator, shape))
         shape.batch.copy_(batch)
         shape.replay()
         state.step += 1
+        tracing.count("step.graphed")
         for name, n in shape.counts.items():
             tracing.count(name, n)
         return state, {k: v.clone() for k, v in shape.out.items()}
 
     def _record(self, key, state, batch, replay):
         """The eager step, recording its draws for the graph of this shape."""
-        noise = _Recorder(state.generator, replay)
-        with tracing.span("step"):
-            metrics = self.body(state, batch, noise)
-        self.shapes[key] = _Shape(fingerprint(state), batch.device, noise.draws,
-                                  eager=not noise.static)
+        noise = _Recorder(state.generator, replay, step=state.step)
+        state, metrics = self._eager(state, batch, noise)
+        self.shapes[key] = _Shape(fingerprint(state), batch.device, noise.draws, noise.seeds,
+                                  noise.reads_step, eager=not noise.static)
         return state, metrics
 
-    def _draw(self, shape: _Shape, replay) -> Optional[List[torch.Tensor]]:
-        """This step's draws in the shape's buffers: the replayed ones, or
-        the recorded calls made again on the state's generator."""
+    def _draw(self, shape: _Shape, state: TrainState, replay) -> bool:
+        """This step's inputs in the shape's buffers: the replayed draws, or
+        the recorded calls made again on the state's generator, the render
+        seeds drawn from it either way, and ``state.step``. False, and
+        nothing drawn, where the replayed draws are not the recorded ones."""
         if not shape.buffers:
             shape.buffers = [torch.empty(s, dtype=d, device=shape.device)
                              for s, d, _ in shape.draws]
+            if shape.reads_step:
+                shape.step = torch.empty((), dtype=torch.float32, device=shape.device)
         if replay is not None:
-            replay = list(replay)
-            if len(replay) != len(shape.buffers):
-                return None
-            for buf, r in zip(shape.buffers, replay):
-                r = torch.as_tensor(r)
-                if tuple(r.shape) != tuple(buf.shape):
-                    return None
+            taken = [b for i, b in enumerate(shape.buffers) if i not in shape.seeds]
+            replay = [torch.as_tensor(r) for r in replay]
+            if len(replay) != len(taken) or any(
+                    tuple(r.shape) != tuple(b.shape) for r, b in zip(replay, taken)):
+                return False
+            for buf, r in zip(taken, replay):
                 buf.copy_(r)
-        else:
-            for buf, (s, _, make) in zip(shape.buffers, shape.draws):
+        for i, (buf, (s, _, make)) in enumerate(zip(shape.buffers, shape.draws)):
+            if replay is None or i in shape.seeds:
                 buf.copy_(make(s))
-        return shape.buffers
+        if shape.step is not None:
+            shape.step.fill_(state.step)
+        return True
 
-    def _capture(self, shape: _Shape, state: TrainState, batch: torch.Tensor,
-                 drawn: List[torch.Tensor]) -> bool:
+    def _capture(self, shape: _Shape, state: TrainState, batch: torch.Tensor) -> bool:
         """Captures the body over static copies; False (and the shape left to
         the eager step) where the capture fails or the body would put new
         tensors in the state. The state is as it was either way."""
@@ -179,7 +223,7 @@ class GraphedStep:
         shape.batch = batch.clone()
         try:
             shape.replay, shape.out = self.capture(
-                lambda: self.body(state, shape.batch, Noise(state.generator, list(drawn))))
+                lambda: self.body(state, shape.batch, _Static(state.generator, shape)))
             kept = fingerprint(state) == shape.state
         except Exception:  # a body the capture cannot take: it waits for the card
             kept = False
@@ -194,4 +238,3 @@ class GraphedStep:
         for name, n in shape.counts.items():
             tracing.count(name, -n)
         return True
-

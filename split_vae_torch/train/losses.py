@@ -113,7 +113,9 @@ def spair_loss(out: SpairOutput, images: torch.Tensor, config, step,
                training: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """SPAIR-family total loss with its anneals; for test steps the anneals are
     pinned (prior_z_pres_prob = 0.99, prior_z_zoom_mean = config.prior_z_zoom,
-    beta_t = config.beta)."""
+    beta_t = config.beta). ``step`` is a Python number or the train step's
+    0-d float32 tensor on the device (``Noise.step``), which the anneals then
+    read there (``train/schedules.py``)."""
     out = _upcast(out)
     if config.model == "lg_spair":
         c = images.shape[-1] // 2

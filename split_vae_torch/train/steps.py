@@ -7,8 +7,8 @@ updates. A VAE-family train step (LGVae, LGGMVae, GMVae): uint8 batch ->
 [-1, 1] floats -> the augmentation on the device -> forward -> the model's
 loss -> backward -> Adam, skip of non-finite updates. GMVae too gets the
 augmented 6-channel input and reads its first 3 channels, so the
-augmentation's draws are spent as in the JAX step. On one process the VAE
-step runs on the card as one CUDA graph (``train/graphs.py``).
+augmentation's draws are spent as in the JAX step. On one process both
+families' train steps run on the card as one CUDA graph (``train/graphs.py``).
 
 ``config.compute_dtype``: 'float32', or 'bfloat16', where every Dense and
 Conv of the model computes in bfloat16 (``nn/common.py``) while the
@@ -183,7 +183,7 @@ def make_vae_eval_step(config, model) -> Callable:
 
 
 def make_spair_train_step(config, windowed_render: bool = False,
-                          mesh: Mesh = Mesh()) -> Callable:
+                          mesh: Mesh = Mesh(), graphed: bool = True) -> Callable:
     """Returns train_step(state, batch, replay=None) -> (state, metrics);
     ``batch`` is this rank's rows.
 
@@ -192,23 +192,36 @@ def make_spair_train_step(config, windowed_render: bool = False,
 
     ``replay`` (tests only) lists the noise to use in draw order: the
     scramble's uniforms, then the model's draws; otherwise everything is drawn
-    from ``state.generator``. Metrics are 0-d tensors on the device.
+    from ``state.generator``. The render's seed is drawn from it either way.
+    Metrics are 0-d tensors on the device.
+
+    The anneals read the step's count on the device (``Noise.step``), so the
+    step copies nothing from the host. On one process the step runs as one
+    CUDA graph on the card once it has seen a batch shape
+    (``train/graphs.py``); ``graphed=False`` keeps every step eager.
     """
     use_fp32()
+
+    def body(state: TrainState, batch: torch.Tensor, noise: Noise) -> Dict[str, torch.Tensor]:
+        check_compute_dtype(config, state.model)
+        with tracing.span("step.inputs"):
+            images = model_inputs(config, normalize_images(batch, "unit"), noise)
+        with tracing.span("step.forward"):
+            out = state.model(images, True, noise, windowed=windowed_render)
+        with tracing.span("step.loss"):
+            total, metrics = losses.spair_loss(out, images, config, noise.step(), training=True)
+        del out  # the outputs the backward does not keep go before it
+        return _apply(state, total, metrics, mesh)
+
+    if graphed and mesh.world == 1:
+        return GraphedStep(body)
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    replay: Optional[Sequence[torch.Tensor]] = None):
         with tracing.span("step"):
-            check_compute_dtype(config, state.model)
-            noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
-            with tracing.span("step.inputs"):
-                images = model_inputs(config, normalize_images(batch, "unit"), noise)
-            with tracing.span("step.forward"):
-                out = state.model(images, True, noise, windowed=windowed_render)
-            with tracing.span("step.loss"):
-                total, metrics = losses.spair_loss(out, images, config, state.step,
-                                                   training=True)
-            return state, _apply(state, total, metrics, mesh)
+            noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size,
+                          step=state.step)
+            return state, body(state, batch, noise)
 
     return train_step
 

@@ -5,6 +5,9 @@ A CUDA graph cannot be captured on the CPU, so the CPU tests hand
 nothing that lasts (the state is put back), the replay runs the captured
 function again over the same static inputs and writes the same output
 tensors, and leaves the Python state (``state.step``, the counters) alone.
+While it replays, ``state.step`` reads what it read at the capture, as a
+graph holds a host value it was captured with: a body that reads the host's
+step bakes it in (``tests/test_torch_spair_graph.py``).
 A toy body updates its state in place, as the fused optimizer does on the
 card. The card test holds the real capture of config #4's step to the eager
 step.
@@ -72,12 +75,14 @@ def stand_in(log):
     def capture(fn):
         log.append("capture")
         state = log.state
+        captured = state.step
         out = computing_nothing(state, fn)
         static = {k: v.detach().clone() for k, v in out.items()}
 
         def replay():
             log.append("replay")
             step, counted = state.step, tracing.counters()
+            state.step = captured
             new = fn()
             for k, v in new.items():
                 static[k].copy_(v)
@@ -353,3 +358,88 @@ def test_the_captured_gm_step_is_the_eager_step(replayed):
         assert len(step.shapes) == 1 and next(iter(step.shapes.values())).replay is not None
     finally:
         torch.backends.cudnn.deterministic = was
+
+
+# Config #5 (LG-SPAIR) through both renders, and the other SPAIR models: the
+# model, its factory's extra fields, the windowed render, whether it is
+# graphed (LGGlimpseSPAIR draws a patch permutation, which has no static
+# form, so its step stays eager).
+SPAIR_ON_CARD = [("lg_spair", {}, False, True), ("lg_spair", {}, True, True),
+                 ("bg_spair", {}, False, True), ("spair", {}, False, True),
+                 ("lg_glimpse_spair", {"patch_size": 4}, False, False)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("model, extra, windowed, captured", SPAIR_ON_CARD,
+                         ids=["config5", "config5-windowed", "bg_spair", "spair",
+                              "lg_glimpse_spair"])
+def test_the_captured_spair_step_is_the_eager_step(model, extra, windowed, captured):
+    """Config #5's step at a small size on the card, full canvas and
+    windowed render (and the other SPAIR models' steps), captured, against
+    the eager step from the same weights and generator (cuDNN
+    deterministic): five steps over which the anneals move (they end at
+    step 4), the metrics to float32's rounding, the parameters within Adam's
+    steps, the generator where the eager step leaves it (one render seed a
+    step), and four replays after the recording."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this machine")
+    from split_vae_torch.core.config import config5
+    from split_vae_torch.core.state import create_train_state
+    from split_vae_torch.models.spair import get_spair_model
+    from split_vae_torch.train.optim import spair_optimizer
+    from split_vae_torch.train.steps import make_spair_train_step
+
+    card = torch.device("cuda", 0)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = config5(model=model, batch_size=8, latent_size=8, bg_latent_size=8,
+                      local_latent_size=8, object_size=16, image_size=(24, 24, 3),
+                      z_pres_anneal_step=4.0, anneal_until=4.0, **extra)
+        runs = []
+        for graph in (False, True):
+            state = create_train_state(get_spair_model(cfg, device=card),
+                                       spair_optimizer(cfg.learning_rate), seed=3)
+            step = make_spair_train_step(cfg, windowed_render=windowed, graphed=graph)
+            g = torch.Generator(device=card).manual_seed(1)
+            before = tracing.counters()
+            out = []
+            for _ in range(5):
+                batch = torch.rand((8, 24, 24, 3), device=card, generator=g)
+                state, m = step(state, batch)
+                out.append({k: v.clone() for k, v in m.items()})
+            torch.cuda.synchronize()
+            after = tracing.counters()
+            runs.append((state, out, {k: after.get(k, 0) - before.get(k, 0)
+                                      for k in ("step.graphed", "step.eager")}))
+        (eager, want, n_eager), (state, got, n_graph) = runs
+        assert state.step == eager.step == 5
+        assert n_eager == {"step.graphed": 0, "step.eager": 0}
+        assert n_graph == ({"step.graphed": 4, "step.eager": 1} if captured
+                           else {"step.graphed": 0, "step.eager": 5})
+        assert torch.equal(state.generator.get_state(), eager.generator.get_state())
+        gaps = [abs(float(x[k]) - float(y[k])) / max(abs(float(y[k])), 1e-3)
+                for x, y in zip(got, want) for k in y]
+        assert max(gaps) <= 1e-4, max(gaps)
+        apart = max(float((p - q).abs().max()) for p, q in zip(state.params, eager.params))
+        assert apart <= 5 * 2 * cfg.learning_rate, apart
+        shape = next(iter(step.shapes.values()))
+        assert (shape.replay is not None) == captured
+        assert shape.reads_step and len(shape.seeds) == 1
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+@pytest.mark.card
+def test_the_anneals_on_the_card_are_the_floats():
+    """The anneals' device forms on the card, bit for bit the floats (CUDA
+    would turn a division by a Python number into a product)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this machine")
+    from test_torch_spair_graph import ANNEALS, anneal_steps
+
+    for anneal in (4, 1_000, 3_000, 10_000):
+        for s in anneal_steps(anneal):
+            step = torch.full((), s, dtype=torch.float32, device="cuda")
+            for f in ANNEALS:
+                assert f(step).item() == f(s), (s, f(step).item(), f(s))

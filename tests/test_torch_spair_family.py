@@ -176,9 +176,11 @@ def both(request):
             tstate = torch_state(tmodel, spair_optimizer(port_cfg.learning_rate), seed=0)
             launches = tracing.counters()
             tstate, t_step_metrics = torch_step(port_cfg)(tstate, torch.from_numpy(x), replay)
-            # No kernel launched; one update through the foreach chain.
+            # No kernel launched; one update through the foreach chain, in the
+            # graphed step's eager path (the CPU's).
             assert tracing.counters() == {**launches,
-                                          "optim.foreach": launches.get("optim.foreach", 0) + 1}
+                                          "optim.foreach": launches.get("optim.foreach", 0) + 1,
+                                          "step.eager": launches.get("step.eager", 0) + 1}
             result.update(
                 step_metrics=(j_step_metrics, t_step_metrics),
                 params=(flax_to_state_dict(jax.tree.map(np.asarray, new_state.params), tmodel),

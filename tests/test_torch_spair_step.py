@@ -132,9 +132,11 @@ def both_steps():
         tstate = torch_state(tmodel, spair_optimizer(port_cfg.learning_rate), seed=0)
         launches = tracing.counters()
         tstate, t_step_metrics = torch_step(port_cfg)(tstate, torch.from_numpy(x), replay)
-        # No kernel launched; one update through the foreach chain.
+        # No kernel launched; one update through the foreach chain, in the
+        # graphed step's eager path (the CPU's).
         assert tracing.counters() == {**launches,
-                                      "optim.foreach": launches.get("optim.foreach", 0) + 1}
+                                      "optim.foreach": launches.get("optim.foreach", 0) + 1,
+                                      "step.eager": launches.get("step.eager", 0) + 1}
         return dict(
             images=(np.asarray(images), t_images.numpy()),
             out=(j_out, t_out),
