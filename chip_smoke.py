@@ -1,12 +1,13 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Checks of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent CHECKOUT]
 
-Drives the port's main paths at full width (random weights from a seed):
-SPAIR-family train steps (B=256, 48-px canvases, 4x4 cells) through the
-hand-written CUDA kernels (the fused paste+composite render, full-canvas and
-row-windowed, and the STN glimpse crop), and the VAE-family train steps
-(LGVae, LGGMVae), which have no hand-written kernel on them. The paths:
+Drives the port's main paths at full width (random weights from a seed) and
+checks what they compute; it times no path, which ``benchmark/`` does. The
+paths: SPAIR-family train steps (B=256, 48-px canvases, 4x4 cells) through
+the hand-written CUDA kernels (the fused paste+composite render, full-canvas
+and row-windowed, and the STN glimpse crop), and the VAE-family train steps
+(LGVae, LGGMVae), which have no hand-written kernel on them:
 
   P1  LG-SPAIR at BASELINE config #5 (Multi-Bird-Hard: 32-px objects, dense
       background and local paths);
@@ -98,17 +99,18 @@ Phases, each of which must pass:
      two the model's path asks for; two runs of each kernel bit-equal.
      Forward atol 3e-5, gradients rtol 1e-3, atol 2e-4: the limits the JAX
      package's tests hold its Pallas kernels to (fp32 sums in another order);
-  4. kernel and plain times at the shapes of P1/P2/P4 and of P3 (median of
-     CUDA-event timings on the device alone) and three-term bounds (bytes,
-     of objs the sectors the taps read; FP32 operations; the Philox noise):
-     the render with a sweep of its rows a block (forward) and cells a block
-     (backward) and the render_noise kernel's time; the windowed pair in
-     turns with the full-canvas pair, with the same sweep; the crop with two
-     library times (the one-call einsum on prebuilt weights; interp_matrix
-     twice and that einsum) and a sweep of its cells a block; the fused
-     optimizer (kernels/adam.py, run_adam) at config #5's 74 leaves and
-     config #2's 40: two steps of the clipped and the unclipped chain bit for
-     bit against the foreach chain, two of the clipped chain over max_norm
+  4. the kernels alone, which the benchmark does not time: kernel and plain
+     times at the shapes of P1/P2/P4 and of P3 (median of CUDA-event timings
+     on the device alone) and three-term bounds (bytes, of objs the sectors
+     the taps read; FP32 operations; the Philox noise): the render with a
+     sweep of its rows a block (forward) and cells a block (backward) and the
+     render_noise kernel's time; the windowed pair in turns with the
+     full-canvas pair, with the same sweep; the crop with two library times
+     (the one-call einsum on prebuilt weights; interp_matrix twice and that
+     einsum) and a sweep of its cells a block; the fused optimizer
+     (kernels/adam.py, run_adam) at config #5's 74 leaves and config #2's
+     40: two steps of the clipped and the unclipped chain bit for bit
+     against the foreach chain, two of the clipped chain over max_norm
      within 16 ulp of it, and twice from one state bit-equal, the step's
      CUDA-event ms beside its bytes (44 a parameter at 3.35 TB/s), each
      pass's profiled ms, and the foreach chain's device ms and launches;
@@ -118,66 +120,55 @@ Phases, each of which must pass:
      their dropout masks live; their gradients held in float64 on both
      devices, since the Gumbel softmax's backward cancels below the float32
      tolerance), then P16's chained steps (above), then each main path:
-     train steps with
-     the kernels' launch counts set to 0 before and read after (and no call
-     of interp_matrix: no dense interpolation weights), the allocator's
-     counts and the garbage collector's passes around them, a profile of
-     three more steps (device time by kernel family, the device's idle share,
-     the host's costliest operators),
-     and one eval step; P4's losses beside P1's; then P6 and P7, each in a
-     temporary directory (working directory, data_dir, output_dir): the
-     records at steps 20, 40 and, after the resume, 60 under train/ and each
-     test prefix, all finite, no update skipped, "Resumed from ... at step
-     40", at most 3 checkpoints and the final weights of each run; on P6 the
-     launch counts (0 before, read after both runs: the render pair and the
-     crop's backward once a train step) and no interp_matrix call with
-     autograd on; the checkpoints' write times and sizes, the peak device
-     memory, and the loop's train/imgs_per_sec at step 40 beside P1's (P5's)
-     timed rate; P8 as P5, with every launch count 0; P9's checks above;
-     P10 and P11 as P1 and P5, their first losses within rtol 0.02 of P1's
-     and P5's, the parameters and the optimizer's state float32 after the
-     steps (held on every path); the resize2x -> conv fusion
-     (nn/pixel_shuffle.py, run_resize_conv): at every site of the main
+     TRAIN_STEPS train steps (run_steps) with the kernels' launch counts set
+     to 0 before and read after, every loss finite, no update skipped, no
+     call of interp_matrix (no dense interpolation weights), the fused
+     optimizer's three launches a step, the parameters and the optimizer's
+     state float32 after the steps and the peak device memory; then one eval
+     step; P4's losses beside P1's; P10 and P11 as P1 and P5, their first
+     losses within rtol 0.02 of P1's and P5's; the resize2x -> conv fusion
+     (nn/pixel_shuffle.py, resize_conv_sites): at every site of the main
      paths (RESIZE_CONV_SITES: P1's ObjDecoder at 4096 x 8 -> 16 -> 32, also
      by the dilated form; P3's ObjDecoder and GlimpseDecoder at 7 -> 14 ->
      28; the BackgroundModel of P2/P3 at 6 -> 12 -> 24 -> 48; P5's
      ConvDecoder.Conv_3, 32 -> 64, k 6) the fused form and its mixed form
      against the chain, float32 and bfloat16, the output and the three
-     gradients (RESIZE_CONV_LIMITS; any miss fails), with each form's
-     forward+backward CUDA-event ms, launches, device conv ms and memory;
-     then P1, P3, P5, P10 and P11 in turns of the chain swapped into the
-     layers and the fused forms (chain, fused, fused, chain, twice): peak
-     device memory and the unprofiled step each turn, device conv ms and
-     launches a step from each side's first turn; P12 as P7 without the resume; P13: each
-     process's draw from a CUDA generator of one seed bit-equal to this
-     process's, the ranks' mean loss against the 1-process loss (rtol 1e-5
-     at the first step, 1e-4 after), the first step's reduced gradients
-     against the mean of the two halves' gradients computed in this process
-     (each tensor within 1e-5 of its L2 norm; the 1-process gradient's gap
-     logged beside it), the parameters after the first step within 1e-5 of
-     the two halves' step computed in this process where |g| >= 1e-5
-     (Adam's rule; the 1-process run's gap logged), after the 3 steps
-     bit-equal across the ranks and within 2 lr a step of both references,
-     and each of the 3 steps alone against the two halves' step computed in
-     this process from the ranks' own parameters and optimizer state before
-     it (gradients within 1e-5 of a tensor's L2 norm, parameters at Adam's
-     rule: a fault at any step fails it; the emulation's own chain beside it,
-     logged), each rank's launches (the
-     render pair and the crop pair once a step), its step time, the
-     all-reduce's device time (CUDA events) and its share of the step, and
-     its peak device memory; P14: the records at step 20, the backend, and
-     the all-reduce's time (in the step with 2 cards, else the explicit one);
+     gradients (RESIZE_CONV_LIMITS; any miss fails); then P6 and P7, each in
+     a temporary directory (working directory, data_dir, output_dir): the
+     records at steps 20, 40 and, after the resume, 60 under train/ and each
+     test prefix, all finite, no update skipped, "Resumed from ... at step
+     40", at most 3 checkpoints and the final weights of each run; on P6 the
+     launch counts (0 before, read after both runs: the render pair and the
+     crop's backward once a train step) and no interp_matrix call with
+     autograd on; the checkpoints' write times and sizes and the peak device
+     memory; P12 as P7 without the resume; P8 as P5, with every launch count
+     0; P9's and P17's checks above; P13: each process's draw from a CUDA
+     generator of one seed bit-equal to this process's, the ranks' mean loss
+     against the 1-process loss (rtol 1e-5 at the first step, 1e-4 after),
+     the first step's reduced gradients against the mean of the two halves'
+     gradients computed in this process (each tensor within 1e-5 of its L2
+     norm; the 1-process gradient's gap logged beside it), the parameters
+     after the first step within 1e-5 of the two halves' step computed in
+     this process where |g| >= 1e-5 (Adam's rule; the 1-process run's gap
+     logged), after the 3 steps bit-equal across the ranks and within 2 lr a
+     step of both references, and each of the 3 steps alone against the two
+     halves' step computed in this process from the ranks' own parameters
+     and optimizer state before it (gradients within 1e-5 of a tensor's L2
+     norm, parameters at Adam's rule: a fault at any step fails it; the
+     emulation's own chain beside it, logged), each rank's launches (the
+     render pair and the crop pair once a step) and its peak device memory;
      P15: each rank at its place in the grid, the JAX rule's 12 sharded
      weights, the ranks of a model index bit-equal and the replicated leaves
-     bit-equal on every rank, the data indices' mean
-     loss against the 1-process one (rtol 1e-5 at the first step, 1e-4
-     after), the first gathered gradients within 1e-5 of a norm of the data
-     halves' mean, the gathered parameters after the first step at Adam's
-     rule of both references, after 3 within 2 lr a step of both, each step
-     alone as P13's, each rank's launches (the render and crop pairs once a
-     step), step time, the bytes and CUDA-event ms a step of the forward's
-     all-gathers and of the model and data groups' all-reduces, and its peak
-     device memory, beside the card's name and power limit;
+     bit-equal on every rank, the data indices' mean loss against the
+     1-process one (rtol 1e-5 at the first step, 1e-4 after), the first
+     gathered gradients within 1e-5 of a norm of the data halves' mean, the
+     gathered parameters after the first step at Adam's rule of both
+     references, after 3 within 2 lr a step of both, each step alone as
+     P13's, each rank's launches (the render and crop pairs once a step) and
+     its peak device memory, beside the card's name and power limit; P14:
+     the records at step 20, the backend, on 2 cards one call of the
+     gradients' all-reduce a step on each rank, on one card the flat
+     all-reduce leaving its tensors as they were;
   6. one JSON line of the kernels (the fused optimizer's row last: its
      times at config #5's leaves, its launches on each main path that
      counts them, P1-P12 and P17 but the classifier's), then the card, then
@@ -190,7 +181,6 @@ beside it.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import gc
 import io
@@ -221,8 +211,7 @@ NORMAL_INSTRUCTIONS = 111
 FWD_ATOL = 3e-5
 WINDOWED_VS_FULL_ATOL = 3e-6
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-4
-TRAIN_STEPS, WARMUP_STEPS = 6, 2
-HOST_OPS = 6  # the host's costliest operators logged with each profile
+TRAIN_STEPS = 8
 SLEEP_CYCLES = 5_000_000  # about 3 ms at the H100's clocks: longer than any run's host time
 
 
@@ -735,6 +724,7 @@ def run_adam(torch, np):
     the foreach chain's device time and launches. Returns the kernels line's
     row, with config #5's times and both sets' largest gap over max_norm."""
     from split_vae_torch.core import tracing
+    from split_vae_torch.core.state import tree_tensors
     from split_vae_torch.train import optim
 
     def fresh(shapes, seed, scale, signs=None):
@@ -748,23 +738,24 @@ def run_adam(torch, np):
         return [t.contiguous(memory_format=torch.channels_last if t.dim() == 4
                              else torch.contiguous_format) for t in out]
 
-    def flat(tree):
-        if isinstance(tree, torch.Tensor):
-            return [tree]
-        return [x for sub in tree for x in flat(sub)] if isinstance(tree, (list, tuple)) else []
-
     def ulps(a, b):
         big = torch.maximum(a.abs(), b.abs())
         ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
         return float(((a - b).abs() / ulp).max())
 
     def by_name(fn, steps=10):
-        """Device ms a call of fn by kernel name (after one call outside the
-        profile), and the launches a call."""
+        """Device ms a call of fn by kernel name (torch.profiler, after one
+        call outside the profile), and the launches a call."""
+        from torch.profiler import ProfilerActivity, profile
+
         fn()
-        prof, _ = profiled(torch, fn, steps)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
         names = {}
-        kernels = kernel_events(torch, prof)
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         for e in kernels:
             names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3 / steps
         return names, len(kernels) / steps
@@ -795,7 +786,7 @@ def run_adam(torch, np):
             launched = tracing.counters().get("optim.fused", 0) - before
             if over:
                 clipped = sum(float(torch.linalg.vector_norm(g)) > 1.0 for g in grads)
-                pairs = [(a, b) for a, b in zip(params + flat(state), ref + flat(ref_state))]
+                pairs = list(zip(params + tree_tensors(state), ref + tree_tensors(ref_state)))
                 worst = max(ulps(a, b) for a, b in pairs if a.is_floating_point())
                 gap = max(float((a.double() - b.double()).abs().max())
                           for a, b in pairs if a.is_floating_point())
@@ -807,7 +798,7 @@ def run_adam(torch, np):
                 detail = f"within {worst:.1f} ulp (max abs {gap:.3g}) of the foreach chain, " \
                          f"{clipped} of {len(shapes)} leaves clipped"
             else:
-                for a, b in zip(params + flat(state), ref + flat(ref_state)):
+                for a, b in zip(params + tree_tensors(state), ref + tree_tensors(ref_state)):
                     if not torch.equal(a, b):
                         fail(f"adam {label} {chain}: the fused step is not the foreach chain's "
                              f"(max gap {(a.double() - b.double()).abs().max().item():.3g})")
@@ -824,7 +815,7 @@ def run_adam(torch, np):
             with torch.no_grad():
                 for i in range(2):
                     optim.apply_updates(tx, params, fresh(shapes, 2 + i, 1.0), state)
-            runs.append(params + flat(state))
+            runs.append(params + tree_tensors(state))
         if not all(torch.equal(a, b) for a, b in zip(*runs)):
             fail(f"adam {label}: two runs of the clipped chain over max_norm differ")
         del runs
@@ -866,76 +857,6 @@ def run_adam(torch, np):
     row.update(max_abs_err=max(g for _, g in gaps.values()),
                max_ulps_over_max_norm={k: u for k, (u, _) in gaps.items()})
     return row
-
-
-def kernel_family(name: str) -> str:
-    """A coarse family for a CUDA kernel's name, for the step's breakdown."""
-    low = name.lower()
-    if "render_" in low:
-        return "render kernels (this port)"
-    if "crop_" in low:
-        return "crop kernels (this port)"
-    # cf32: the complex GEMM of cuDNN's FFT convolutions (the port runs no
-    # complex product of its own).
-    if any(s in low for s in ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
-                              "winograd", "fft", "cf32")):
-        return "convolutions (cuDNN)"
-    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "matmul", "splitk")):
-        return "matrix products (cuBLAS)"
-    if "reduce" in low or "norm" in low:
-        return "reductions"
-    if "copy" in low or "memcpy" in low or "memset" in low or "cat" in low:
-        return "copies"
-    return "elementwise and other"
-
-
-def profiled(torch, fn, steps: int):
-    """fn() ``steps`` times under torch.profiler (the host and the card), from
-    a synchronized card; returns the profile and the calls' host seconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return prof, wall
-
-
-def kernel_events(torch, prof):
-    """The profile's kernels: its events on the card."""
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def profile_steps(torch, train_step, state, batch, steps: int = 3):
-    """Device time by kernel family over a few train steps (torch.profiler).
-
-    Returns the state, the window's host seconds, the union of the kernels'
-    device intervals in seconds, {family: (device seconds, launches)} and
-    the host's costliest operators [(name, calls, self CPU seconds)].
-    """
-    held = [state]
-
-    def step():
-        held[0], _ = train_step(held[0], batch)
-
-    prof, wall = profiled(torch, step, steps)
-    kernels = kernel_events(torch, prof)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:  # union of the kernels' intervals, in microseconds
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    families = {}
-    for e in kernels:
-        t, n = families.get(kernel_family(e.name), (0.0, 0))
-        families[kernel_family(e.name)] = (t + e.time_range.elapsed_us() * 1e-6, n + 1)
-    ops = sorted(((a.key, a.count, a.self_cpu_time_total * 1e-6) for a in prof.key_averages()
-                  if a.key.startswith("aten::")), key=lambda o: -o[2])[:HOST_OPS]
-    return held[0], wall, busy * 1e-6, families, ops
 
 
 class RecordingNoise:
@@ -1210,8 +1131,8 @@ def chained_gm_check(torch, np, cfg, hw, label, device="cuda"):
         with torch.no_grad():
             cpu(augment(cfg, normalize_images(batch, "tanh").double(), rec), True, rec)
         replays.append(rec.drawn)
-    with float64_steps():
-        runs = [run_chain(torch, model, tx, make_vae_train_step(cfg), batches, replays,
+    with float64_steps():  # eager: a float64 step takes the foreach optimizer
+        runs = [run_chain(torch, model, tx, make_vae_train_step(cfg).eager, batches, replays,
                           GM_CHAIN_START, dev) for model, dev in ((cpu, "cpu"), (card, device))]
     hold_chain(label, f"B={cfg.batch_size}, {hw[0]} px, patch {cfg.patch_size}, float64, "
                f"from count {GM_CHAIN_START}", [n for n, _ in cpu.named_parameters()], *runs)
@@ -1258,84 +1179,24 @@ def hold_fused_optimizer(name, launched, steps):
     FUSED_BY_PATH[name] = launched
 
 
-MEMORY_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
-
-
-class GcPauses:
-    """Records the Python garbage collector's passes while the block lasts:
-    (generation, seconds, objects collected) each."""
-
-    def __enter__(self):
-        self.passes, self.t = [], 0.0
-        gc.callbacks.append(self.callback)
-        return self
-
-    def callback(self, phase, info):
-        if phase == "start":
-            self.t = time.perf_counter()
-        else:
-            self.passes.append((info["generation"], time.perf_counter() - self.t,
-                                info["collected"]))
-
-    def __exit__(self, *exc):
-        gc.callbacks.remove(self.callback)
-        return False
-
-    def summary(self) -> str:
-        full = [p for p in self.passes if p[0] == 2]
-        return (f"{len(self.passes)} passes in {sum(p[1] for p in self.passes) * 1e3:.3f} ms, "
-                f"{len(full)} of generation 2 ({sum(p[1] for p in full) * 1e3:.3f} ms)")
-
-
-def timed_steps(torch, np, name, train_step, state, batches, batch_size):
-    """WARMUP_STEPS + TRAIN_STEPS train steps; returns the state, the losses
-    and the timed steps' imgs/s after checking that all is finite.
-
-    The garbage of the earlier phases is collected before the timed steps
-    (the profiles leave millions of objects in reference cycles, whose
-    collection would otherwise land in whichever step the collector's
-    thresholds pick). Logs that collection, the collector's passes during the
-    timed steps, the allocator's counts (MEMORY_STATS) before and after them,
-    and each timed step's host time to return (the enqueue, not
-    synchronized)."""
-    torch.cuda.synchronize()
+def run_steps(torch, np, name, train_step, state, batches):
+    """TRAIN_STEPS train steps on the two batches in turn, the peak device
+    memory counted from their start; returns the state and the losses after
+    checking that all is finite and no update was skipped."""
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    for i in range(WARMUP_STEPS):
+    for i in range(TRAIN_STEPS):
         state, metrics = train_step(state, batches[i % 2])
         losses.append(metrics["total_loss"])
-    torch.cuda.synchronize()
-    with GcPauses() as before_gc:
-        unreachable = gc.collect()
-    before = torch.cuda.memory_stats()
-    enqueue = []
-    with GcPauses() as in_steps:
-        t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
-            t1 = time.perf_counter()
-            state, metrics = train_step(state, batches[i % 2])
-            enqueue.append(time.perf_counter() - t1)
-            losses.append(metrics["total_loss"])
-        torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t0) / TRAIN_STEPS
-    after = torch.cuda.memory_stats()
     losses = [v.item() for v in losses]
     notfinite = int(metrics["notfinite_updates"].item())
     log(f"{name}: {len(losses)} steps; losses {losses[0]:.2f} -> {losses[-1]:.2f}; "
         f"notfinite_updates {notfinite}")
-    log(f"{name}: step {step_s * 1e3:.3f} ms, {batch_size / step_s:.1f} imgs/s "
-        f"(mean of {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up); host time to return each "
-        f"step: " + ", ".join(f"{t * 1e3:.3f}" for t in enqueue) + " ms")
-    log(f"{name}: allocator before -> after the timed steps: " + ", ".join(
-        f"{k} {before.get(k, 0)} -> {after.get(k, 0)}" for k in MEMORY_STATS))
-    log(f"{name}: gc.collect() before the timed steps: {unreachable} unreachable objects in "
-        f"{before_gc.passes[-1][1] * 1e3:.3f} ms; collector during the timed steps: "
-        f"{in_steps.summary()}")
     if not all(np.isfinite(losses)):
         fail(f"{name}: non-finite loss {losses}")
     if notfinite != 0:
         fail(f"{name}: {notfinite} updates were skipped as non-finite")
-    return state, losses, batch_size / step_s
+    return state, losses
 
 
 class CountInterpMatrix:
@@ -1378,43 +1239,21 @@ def check_float32_state(name, state):
     steps, whatever the compute dtype."""
     import torch
 
-    def tensors(tree):
-        if isinstance(tree, torch.Tensor):
-            yield tree
-        elif isinstance(tree, (tuple, list)):
-            for t in tree:
-                yield from tensors(t)
+    from split_vae_torch.core.state import tree_tensors
 
     held = list(state.model.parameters()) + [
-        t for t in tensors(state.opt_state) if t.is_floating_point()]
+        t for t in tree_tensors(state.opt_state) if t.is_floating_point()]
     other = {str(t.dtype) for t in held if t.dtype != torch.float32}
     if other:
         fail(f"{name}: parameters or optimizer state in {sorted(other)} after the steps")
 
 
-def log_profile(torch, name, train_step, state, batch):
-    """Where the step's time goes (after the launch counts were read)."""
-    n_prof = 3
-    state, wall, busy, families, ops = profile_steps(torch, train_step, state, batch, n_prof)
-    if busy > 0:
-        log(f"{name} profile: {n_prof} steps under torch.profiler, {wall / n_prof * 1e3:.3f} ms "
-            f"a step on the host clock; device busy {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
-        for fam, (t, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
-            log(f"  {fam}: {t / n_prof * 1e3:.3f} ms a step, {n // n_prof} launches a step")
-        log(f"  host, the costliest operators by self CPU time (the profiler's own cost "
-            f"included): " + ", ".join(f"{k} {t / n_prof * 1e3:.2f} ms in {c // n_prof} calls"
-                                       for k, c, t in ops) + " a step")
-    else:
-        log(f"{name} profile: the profiler recorded no device time")
-    return state
-
-
 def run_path(torch, np, name, cfg, windowed_render=False):
     """A SPAIR-family main path at full width: train steps through the kernels
-    with the launch counts set to 0 before and read after, a profile, one eval
-    step. ``windowed_render`` takes the row-windowed render pair, and then the
+    with the launch counts set to 0 before and read after, one eval step.
+    ``windowed_render`` takes the row-windowed render pair, and then the
     full-canvas pair must not be launched. Returns the launch counts of the
-    train steps, their losses and the timed steps' imgs/s."""
+    train steps and their losses."""
     from split_vae_torch.core.state import create_train_state
     from split_vae_torch.models.spair import get_spair_model
     from split_vae_torch.train.optim import spair_optimizer
@@ -1431,8 +1270,7 @@ def run_path(torch, np, name, cfg, windowed_render=False):
         f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
     reset_launches()
     with CountInterpMatrix() as dense:
-        state, losses, rate = timed_steps(torch, np, name, train_step, state, batches,
-                                          cfg.batch_size)
+        state, losses = run_steps(torch, np, name, train_step, state, batches)
     launches = read_launches()
     hold_fused_optimizer(name, read_fused(), len(losses))
     check_float32_state(name, state)
@@ -1450,7 +1288,6 @@ def run_path(torch, np, name, cfg, windowed_render=False):
             fail(f"{name}: {kernel} kernel launched {n} times in {len(losses)} steps")
     log(f"{name}: no interp_matrix in the train steps; launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    state = log_profile(torch, name, train_step, state, batches[0])
 
     # One eval step with labels (random counts: the weights are random too).
     labels = torch.from_numpy(rng.randint(0, 7, cfg.batch_size).astype(np.float32)).cuda()
@@ -1464,14 +1301,14 @@ def run_path(torch, np, name, cfg, windowed_render=False):
     log(f"{name} eval: total_loss {ev['total_loss']:.2f}, count_acc {ev['count_acc']:.4f}, "
         f"MAE test {ev['MAE test']:.4f}, MAPE_nonzero test {ev['MAPE_nonzero test']:.2f}, "
         f"MAPE test {ev['MAPE test']:.4g}")
-    return launches, losses, rate
+    return launches, losses
 
 
 def run_vae_path(torch, np, name, cfg, hw):
     """A VAE-family main path at full width (LGVae, LGGMVae): train steps on
-    uint8 batches, a profile, one eval step. No hand-written kernel lies on
-    it; the launch counts are read all the same, must be 0, and are returned,
-    with the losses and the timed steps' imgs/s."""
+    uint8 batches, one eval step. No hand-written kernel lies on it; the
+    launch counts are read all the same, must be 0, and are returned, with
+    the losses."""
     from split_vae_torch.core.state import create_train_state
     from split_vae_torch.train.loop import build_vae_model
     from split_vae_torch.train.steps import make_vae_eval_step, make_vae_train_step
@@ -1488,14 +1325,13 @@ def run_vae_path(torch, np, name, cfg, hw):
         f"{cfg.compute_dtype}): "
         f"B={cfg.batch_size}, {sum(p.numel() for p in model.parameters())} params")
     reset_launches()
-    state, losses, rate = timed_steps(torch, np, name, train_step, state, batches, cfg.batch_size)
+    state, losses = run_steps(torch, np, name, train_step, state, batches)
     launches = read_launches()
     hold_fused_optimizer(name, read_fused(), len(losses))
     check_float32_state(name, state)
     if any(launches.values()):
         fail(f"{name}: a SPAIR kernel was launched on the {cfg.model} path: {launches}")
     log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    state = log_profile(torch, name, train_step, state, batches[0])
 
     out, ev, images = make_vae_eval_step(cfg, model)(state.generator, batches[1])
     torch.cuda.synchronize()
@@ -1506,7 +1342,7 @@ def run_vae_path(torch, np, name, cfg, hw):
             or tuple(images.shape) != (cfg.batch_size, *hw, 6)):
         fail(f"{name}: eval x_mean {tuple(out.x_mean.shape)}, images {tuple(images.shape)}")
     log(f"{name} eval: " + ", ".join(f"{k} {v:.4f}" for k, v in ev.items()))
-    return launches, losses, rate
+    return launches, losses
 
 
 # ---------------------------------------------------------------- resize2x -> conv
@@ -1531,61 +1367,26 @@ RESIZE_CONV_SITES = (
 # (TF32 off) sums the same products in another order; bfloat16 rounds other
 # intermediates (the chain its upsampled tensor and that tensor's gradient).
 RESIZE_CONV_LIMITS = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -5, 2 ** -5)}  # output, grads
-RESIZE_TURNS = ("chain", "fused", "fused", "chain") * 2
-
-
-@contextlib.contextmanager
-def chain_in_layers():
-    """The layers compute the chain (F.interpolate, then the conv) in place of
-    the fused forms while the block lasts: the "before" of the turns."""
-    from split_vae_torch.nn import pixel_shuffle
-
-    fused = pixel_shuffle.resize2x_conv, pixel_shuffle.resize2x_conv_any
-    pixel_shuffle.resize2x_conv = pixel_shuffle.resize2x_conv_any = \
-        pixel_shuffle.resize2x_conv_chain
-    try:
-        yield
-    finally:
-        pixel_shuffle.resize2x_conv, pixel_shuffle.resize2x_conv_any = fused
-
-
-def device_kernels(torch, fn):
-    """Launches of one call of fn and the device ms of its convolutions
-    (torch.profiler, ``kernel_family``), after one call outside it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    conv = [e for e in kernels if kernel_family(e.name) == "convolutions (cuDNN)"]
-    return len(kernels), sum(e.time_range.elapsed_us() for e in conv) * 1e-3
 
 
 def resize_conv_sites(torch):
     """The fused forms (and their mixed forms) against the chain on the card
     at every production site, float32 and bfloat16, the output and the
-    gradients of x, the kernel and the bias (RESIZE_CONV_LIMITS); the
-    forward+backward's CUDA-event ms, launches, device conv ms and memory
-    above the inputs for the chain, the fused and the mixed form. Logs every
+    gradients of x, the kernel and the bias (RESIZE_CONV_LIMITS). Logs every
     gap, then fails on any miss."""
     from split_vae_torch.nn import pixel_shuffle as ps
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     misses = []
     log("resize2x -> conv sites (nn/pixel_shuffle.py), the fused and mixed forms against the "
-        "chain on the card (each tensor's largest gap over its largest magnitude; fwd+bwd: "
-        "CUDA-event ms, launches, device conv ms of those, memory above the inputs):")
+        "chain on the card (each tensor's largest gap over its largest magnitude):")
     for label, form, b, s, cin, cout, k in RESIZE_CONV_SITES:
         x = torch.randn(b, s, s, cin, device="cuda", generator=gen)
         w = torch.randn(cout, cin, k, k, device="cuda", generator=gen) * (
             2.0 / (k * k * (cin + cout))) ** 0.5
         bias = torch.randn(cout, device="cuda", generator=gen) * 0.1
         cot = torch.randn(b, 2 * s, 2 * s, cout, device="cuda", generator=gen)
-        forms = {"chain": ps.resize2x_conv_chain, "fused": getattr(ps, form),
-                 "mixed": getattr(ps, form + "_mixed")}
+        forms = {"fused": getattr(ps, form), "mixed": getattr(ps, form + "_mixed")}
         for dtype, (out_limit, grad_limit) in RESIZE_CONV_LIMITS.items():
             ins = [t.detach().to(getattr(torch, dtype)).requires_grad_() for t in (x, w, bias)]
             g_out = cot.to(ins[0].dtype)
@@ -1594,116 +1395,23 @@ def resize_conv_sites(torch):
                 out = fn(*ins)
                 return [out.detach()] + list(torch.autograd.grad(out, ins, g_out))
 
-            ref = run(forms["chain"])
+            ref = run(ps.resize2x_conv_chain)
             line = []
-            for name in ("fused", "mixed"):
+            for name, fn in forms.items():
                 gaps = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
-                        for g, r in zip(run(forms[name]), ref)]
+                        for g, r in zip(run(fn), ref)]
                 line.append(f"{name} out {gaps[0]:.3g}, dx {gaps[1]:.3g}, dK {gaps[2]:.3g}, "
                             f"db {gaps[3]:.3g}")
                 if not (gaps[0] <= out_limit and max(gaps[1:]) <= grad_limit):
                     misses.append(f"{label} {dtype} {name}: {gaps}")
-            del ref
-            cost = []
-            for name, fn in forms.items():
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                run(fn)
-                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-                launches, conv_ms = device_kernels(torch, lambda: run(fn))
-                cost.append(f"{name} {cuda_ms(lambda: run(fn)):.4f} ms, {launches} launches, "
-                            f"conv {conv_ms:.4f} ms, {peak:.1f} MiB")
             log(f"  {label} ({form}, x [{b},{s},{s},{cin}], Cout {cout}, k {k}) {dtype}: "
-                + "; ".join(line) + " | " + "; ".join(cost))
-            del ins, g_out
+                + "; ".join(line))
+            del ref, ins, g_out
         del x, w, bias, cot
         torch.cuda.empty_cache()
     if misses:
         fail("resize2x -> conv against the chain on the card: " + "; ".join(misses))
     log(f"resize2x -> conv sites: every form within {RESIZE_CONV_LIMITS} of the chain")
-
-
-def resize_conv_turns(torch, name, train_step, state, batches, batch_size):
-    """A main path in turns with the chain swapped into its layers and with
-    the fused forms (RESIZE_TURNS): each turn 2 warm-up steps, then the peak
-    device memory and the host clock over TRAIN_STEPS steps; each side's
-    first turn then profiles 3 steps (device conv ms and launches a step)."""
-    steps, peaks, profiled = {"chain": [], "fused": []}, {"chain": [], "fused": []}, {}
-    for side in RESIZE_TURNS:
-        with chain_in_layers() if side == "chain" else contextlib.nullcontext():
-            for i in range(WARMUP_STEPS):
-                state, _ = train_step(state, batches[i % 2])
-            torch.cuda.synchronize()
-            gc.collect()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for i in range(TRAIN_STEPS):
-                state, metrics = train_step(state, batches[i % 2])
-            torch.cuda.synchronize()
-            steps[side].append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
-            peaks[side].append(torch.cuda.max_memory_allocated() / 2 ** 30)
-            if side not in profiled:
-                state, _, _, families, _ = profile_steps(torch, train_step, state, batches[0], 3)
-                conv_ms, conv_n = families.get("convolutions (cuDNN)", (0.0, 0))
-                profiled[side] = (conv_ms / 3 * 1e3, conv_n // 3,
-                                  sum(n for _, n in families.values()) // 3)
-        if not torch.isfinite(metrics["total_loss"]):
-            fail(f"{name} turns: non-finite loss with the {side}")
-    for side in steps:
-        conv_ms, conv_n, launches = profiled[side]
-        log(f"  {name} {side}: unprofiled step by turn "
-            + ", ".join(f"{v:.3f}" for v in steps[side]) + f" ms ({TRAIN_STEPS} steps a turn; median {statistics.median(steps[side]):.3f} ms, "
-            f"{batch_size / statistics.median(steps[side]) * 1e3:.1f} imgs/s), peak device memory "
-            + ", ".join(f"{v:.3f}" for v in peaks[side]) + f" GiB; profiled: device conv "
-            f"{conv_ms:.3f} ms in {conv_n} launches a step, {launches} launches a step")
-    wins = sum(f < c for c, f in zip(steps["chain"], steps["fused"]))
-    log(f"{name} turns, chain -> fused: median step {statistics.median(steps['chain']):.3f} -> "
-        f"{statistics.median(steps['fused']):.3f} ms (the fused side faster in {wins} of "
-        f"{len(steps['fused'])} pairs), peak {max(peaks['chain']):.3f} -> "
-        f"{max(peaks['fused']):.3f} GiB, conv {profiled['chain'][0]:.3f} -> "
-        f"{profiled['fused'][0]:.3f} ms, launches {profiled['chain'][2]} -> "
-        f"{profiled['fused'][2]} a step")
-
-
-def run_resize_conv(torch, np):
-    """The resize2x -> conv phase: the sites, then P1, P3, P5, P10 and P11 in
-    turns of the chain and the fused forms, beside the card. The steps run
-    eagerly: a captured graph would keep the forms it was captured with."""
-    from split_vae_torch.core.config import (
-        CONFIG2_IMAGE_HW,
-        config2,
-        config5,
-        config_glimpse_spair,
-    )
-    from split_vae_torch.core.state import create_train_state
-    from split_vae_torch.models.spair import get_spair_model
-    from split_vae_torch.train.loop import build_vae_model
-    from split_vae_torch.train.optim import spair_optimizer
-    from split_vae_torch.train.steps import make_spair_train_step, make_vae_train_step
-
-    log(f"resize2x -> conv on {card_line()}")
-    resize_conv_sites(torch)
-    rng = np.random.RandomState(0)
-    spair_batches = [torch.from_numpy(rng.uniform(0, 1, (256, 48, 48, 3)).astype(np.float32))
-                     .cuda() for _ in range(2)]
-    vae_batches = [torch.from_numpy(rng.randint(0, 255, (64, *CONFIG2_IMAGE_HW, 3))
-                                    .astype(np.uint8)).cuda() for _ in range(2)]
-    log(f"resize2x -> conv turns ({', '.join(RESIZE_TURNS)}), each path from its seed:")
-    for name, cfg in (("P1", config5()), ("P3", config_glimpse_spair()),
-                      ("P5", config2()), ("P10", config5(compute_dtype="bfloat16")),
-                      ("P11", config2(compute_dtype="bfloat16"))):
-        if name in ("P5", "P11"):
-            model, tx = build_vae_model(cfg, CONFIG2_IMAGE_HW, device="cuda")
-            step, batches = make_vae_train_step(cfg, graphed=False), vae_batches
-        else:
-            model = get_spair_model(cfg, device="cuda")
-            tx, step, batches = (spair_optimizer(cfg.learning_rate),
-                                 make_spair_train_step(cfg, graphed=False), spair_batches)
-        state = create_train_state(model, tx, seed=cfg.seed)
-        resize_conv_turns(torch, name, step, state, batches, cfg.batch_size)
-        del model, state
-        torch.cuda.empty_cache()
 
 
 # The reference command of config #5 (split_vae_tpu/cli/spair_main.py:3-7) and
@@ -1866,8 +1574,8 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, first=FIRST_STEPS,
     there). The launch counts are set to 0 before and read after both runs;
     on the SPAIR path each train step launches the render pair and the crop's
     backward once and builds no dense weights. Logs each checkpoint's write
-    time and size and the peak device memory; returns the launch counts, the
-    loop's train/imgs_per_sec at step ``first`` and the runs' records.
+    time and size and the peak device memory; returns the launch counts and
+    the runs' records.
 
     ``pngs`` (``spair_pngs``, ``vae_pngs``) gives each eval step's PNGs: every
     run's are checked by ``check_pngs``, and a ``[viz] ... skipped`` line in
@@ -1919,15 +1627,11 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, first=FIRST_STEPS,
             reset_launches()
             with CountInterpMatrix() as dense, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
                 common = argv + ["--data_dir", tmp, "--output_dir", os.path.join(tmp, "output")]
-                t0 = time.perf_counter()
                 main(common + ["--training_steps", str(first)])
-                t1 = t2 = time.perf_counter()
                 (run,) = os.listdir(os.path.join(tmp, "output"))
                 resume = os.path.join(tmp, "output", run, "checkpoints")
                 if resumed is not None:
                     main(common + ["--training_steps", str(resumed), "--resume", resume])
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
         finally:
             ckpt.save_checkpoint = original
             for k in viz_fns:
@@ -1973,15 +1677,13 @@ def run_cli_path(torch, np, name, main, argv, test_prefixes, first=FIRST_STEPS,
             fail(f"{name}: launches {launches} in {steps} train steps")
     elif any(launches.values()):
         fail(f"{name}: a SPAIR kernel was launched on a VAE path: {launches}")
-    (rate,) = [r["train/imgs_per_sec"] for r in records
-               if r["step"] == first and "train/imgs_per_sec" in r]
-    log(f"{name}: {steps} train steps through the CLI in {t1 - t0:.1f} s + {t2 - t1:.1f} s "
-        f"(set-up, data and evals included); launches {launches}; interp_matrix {dense.calls} "
-        f"calls with autograd on, {dense.no_grad_calls} under no_grad (the eval sweeps' unfused "
-        f"forwards); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{name}: {steps} train steps through the CLI; launches {launches}; interp_matrix "
+        f"{dense.calls} calls with autograd on, {dense.no_grad_calls} under no_grad (the eval "
+        f"sweeps' unfused forwards); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{name}: checkpoints written: " + ", ".join(
         f"{t * 1e3:.1f} ms for {size / 1e6:.1f} MB" for t, size in saves))
-    return launches, rate, records
+    return launches, records
 
 
 # The probe's seven columns (train/probes.py); LGVae logs the first five.
@@ -2010,10 +1712,7 @@ def run_classifier_cli(torch, np):
         reset_launches()
         try:
             with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
-                t0 = time.perf_counter()
                 classifier_main.main(["--epochs", "1", "-synthetic_data", "--data_dir", tmp])
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
         finally:
             os.chdir(cwd)
         m = re.search(r"classifier epoch 1: train loss (\S+) acc (\S+) test acc (\S+)",
@@ -2026,9 +1725,8 @@ def run_classifier_cli(torch, np):
         launches = read_launches()
     if any(launches.values()):
         fail(f"P9: a SPAIR kernel was launched by classifier_main: {launches}")
-    log(f"P9 classifier_main: one epoch of 640 images (train and test) in {t1 - t0:.1f} s, "
-        f"set-up and data included; train loss {m.group(1)}, acc {m.group(2)}, test acc "
-        f"{m.group(3)}")
+    log(f"P9 classifier_main: one epoch of 640 images (train and test); train loss "
+        f"{m.group(1)}, acc {m.group(2)}, test acc {m.group(3)}")
     return launches
 
 
@@ -2068,7 +1766,7 @@ def run_p17(torch, np, cli_args):
     tracing.drain()
     tracing.enable(True)
     try:
-        launches, loop_rate, _ = run_cli_path(
+        launches, _ = run_cli_path(
             torch, np, "P17", vae_main.main, list(CONFIG4_ARGV) + cli_args, ("test/",),
             pngs=vae_pngs(CONFIG4_IMAGE_HW, "lggmvae", svhn=False, viz=True, last_batch=64,
                           y_size=30))
@@ -2080,9 +1778,7 @@ def run_p17(torch, np, cli_args):
     if not nested or calls["gm.y"] != calls["forward.gm_encoder"] \
             or calls["forward.gm_encoder"] <= calls["step"]:
         fail(f"P17: span calls {calls}, gm.y always inside forward.gm_encoder: {nested}")
-    log(f"P17: span calls over both runs {calls} (train steps, evals and figures); the loop's "
-        f"train/imgs_per_sec at step 40 {loop_rate:.1f} (config #4, B=64; steps 21-40 and "
-        f"the step-20 checkpoint's write, tracing on)")
+    log(f"P17: span calls over both runs {calls} (train steps, evals and figures)")
     return launches
 
 
@@ -2134,50 +1830,6 @@ def spawn_ranks(fn_name: str, world: int, args: tuple, timeout: float):
             fail(f"{fn_name}: rank {r} exited {p.returncode}")
 
 
-def timed_collectives(torch, spans):
-    """Puts CUDA events around every call of the train steps' collectives: the
-    gradients' all-reduce (``train/steps.py::reduce_gradients_``, "reduce")
-    and the model group's all-gathers of the sharded layers' outputs and
-    all-reduces of their inputs' gradients (``parallel/tensor.py``,
-    "gather", "model_reduce"). Appends (kind, bytes, start, end) to
-    ``spans``; returns a function that undoes it. A call made while a step
-    is captured as a CUDA graph (``train/graphs.py``: a 1-rank mesh's VAE
-    step) is not timed."""
-    from split_vae_torch.parallel import tensor as tensor_mod
-    from split_vae_torch.train import steps as steps_mod
-
-    def timed(kind, fn, nbytes):
-        def call(*args, **kwargs):
-            if torch.cuda.is_current_stream_capturing():
-                return fn(*args, **kwargs)  # inside a captured step, an event is the graph's
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans.append((kind, nbytes(args, out), start, end))
-            return out
-        return call
-
-    def size(t):
-        return t.numel() * t.element_size()
-
-    originals = ((steps_mod, "reduce_gradients_", lambda a, out: sum(size(t) for t in a[0])),
-                 (tensor_mod, "all_gather_cat", lambda a, out: size(out)),
-                 (tensor_mod, "all_reduce_sum_", lambda a, out: size(out)))
-    saved = [(module, name, getattr(module, name)) for module, name, _ in originals]
-    for (module, name, nbytes), (_, _, fn) in zip(originals, saved):
-        kind = {"reduce_gradients_": "reduce", "all_gather_cat": "gather"}.get(name,
-                                                                               "model_reduce")
-        setattr(module, name, timed(kind, fn, nbytes))
-    return lambda: [setattr(module, name, fn) for module, name, fn in saved]
-
-
-def span_totals(spans, kind, steps):
-    """The ms and MB a step of ``kind``'s spans, over ``steps`` steps."""
-    picked = [(b, s.elapsed_time(e)) for k, b, s, e in spans if k == kind]
-    return (sum(ms for _, ms in picked) / steps, sum(b for b, _ in picked) / 1e6 / steps)
-
-
 def p13_batches(torch, np, cfg, device):
     """P1's two batches (``run_path``'s), on ``device``."""
     rng = np.random.RandomState(0)
@@ -2190,11 +1842,9 @@ def p13_steps(torch, np, mesh):
     through P13_STEPS train steps on this rank's rows, every rank starting
     from rank 0's state, then keeping its blocks of the weights that the JAX
     rule shards when the mesh has a model group (P15). Returns the losses
-    (this rank's), the kernels' launches in the steps, the mean host time of
-    the steps after the first, the collectives' device ms and MB a step (of
-    those steps), the peak device memory, this rank's parameters (blocks)
-    after the steps, and on rank 0 the 1-rank tensors of every step (taken
-    outside the timed steps): the gradients the optimizer saw, the
+    (this rank's), the kernels' launches in the steps, the peak device
+    memory, this rank's parameters (blocks) after the steps, and on rank 0
+    the 1-rank tensors of every step: the gradients the optimizer saw, the
     parameters and the optimizer state after it."""
     from split_vae_torch.core.config import config5
     from split_vae_torch.core.state import create_train_state, tree_tensors
@@ -2229,44 +1879,29 @@ def p13_steps(torch, np, mesh):
     shards = {n: state.model.get_submodule(n.rpartition(".")[0]).shard for n in sharded}
     mine = rows(mesh, cfg.batch_size)
     batches = [b[mine] for b in p13_batches(torch, np, cfg, mesh.device)]
-    train_step = steps_mod.make_spair_train_step(cfg, mesh=mesh)
+    # Eager on one process too: no graph holds the recording (foreach) optimizer.
+    train_step = steps_mod.make_spair_train_step(cfg, mesh=mesh).eager
     keep = mesh.rank == 0
     record = {"grads": [], "params": [], "opt": []}
-    spans = []
-    undo = timed_collectives(torch, spans)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    losses, times = [], []
-    try:
-        for i in range(P13_STEPS):
-            if i == 1:
-                spans.clear()
-            t0 = time.perf_counter()
-            state, metrics = train_step(state, batches[i % 2])
-            losses.append(metrics["total_loss"])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            # The 1-rank tensors, through the unwrapped gathers (no span).
-            grads = [all_gather_cat(g, shards[n], 0) if n in shards else g
-                     for n, g in zip(names, seen.pop())]
-            full = gather_state_dict(model)
-            opt = tree_tensors(gather_opt_state(state))
-            if keep:
-                record["grads"].append([g.cpu() for g in grads])
-                record["params"].append([full[n].detach().cpu() for n in names])
-                record["opt"].append([t.cpu() for t in opt])
-            del grads, full, opt
-    finally:
-        undo()
+    losses = []
+    for i in range(P13_STEPS):
+        state, metrics = train_step(state, batches[i % 2])
+        losses.append(metrics["total_loss"])
+        # The 1-rank tensors.
+        grads = [all_gather_cat(g, shards[n], 0) if n in shards else g
+                 for n, g in zip(names, seen.pop())]
+        full = gather_state_dict(model)
+        opt = tree_tensors(gather_opt_state(state))
+        if keep:
+            record["grads"].append([g.cpu() for g in grads])
+            record["params"].append([full[n].detach().cpu() for n in names])
+            record["opt"].append([t.cpu() for t in opt])
+        del grads, full, opt
     launches = read_launches()
-    steps = P13_STEPS - 1
     return dict(record, losses=[v.item() for v in losses],
                 notfinite=int(metrics["notfinite_updates"].item()), launches=launches,
-                step_s=statistics.mean(times[1:]),
-                reduce=span_totals(spans, "reduce", steps),
-                gather=span_totals(spans, "gather", steps),
-                model_reduce=span_totals(spans, "model_reduce", steps),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, names=names,
                 sharded=sharded, blocks=[p.detach().cpu() for p in model.parameters()],
                 params_a_rank=sum(p.numel() for p in model.parameters()))
@@ -2456,9 +2091,7 @@ def run_p13(torch, np):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as out:
-        t0 = time.perf_counter()
         spawn_ranks("p13_rank", RANKS, (out,), timeout=600)
-        spawned_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(out, f"p13_rank{r}.pt"), weights_only=False)
                  for r in range(RANKS)]
     missed = []
@@ -2533,16 +2166,9 @@ def run_p13(torch, np):
         f"{max(gap_one.values()):.3g}; the halves' mean to the 1-process gradient (float32's "
         f"split of the sum, no transport): " + ", ".join(f"{n} {floor[n]:.3g}" for n in top))
     for r, res in enumerate(ranks):
-        reduce_ms = res["reduce"][0]
         log(f"P13 rank {r}: backend {res['backend']}; launches in {P13_STEPS} steps "
-            f"{res['launches']}")
-        log(f"P13 rank {r}: step {res['step_s'] * 1e3:.3f} ms (mean of steps 2-{P13_STEPS}, host "
-            f"clock, synchronized); all-reduce {reduce_ms:.3f} ms a step (CUDA events), "
-            f"{reduce_ms / (res['step_s'] * 1e3):.1%} of the step; peak device memory "
-            f"{res['peak_gib']:.3f} GiB")
-    log(f"P13 one process (the reference): step {one['step_s'] * 1e3:.3f} ms, peak device memory "
-        f"{one['peak_gib']:.3f} GiB; the {RANKS} processes took {spawned_s:.1f} s from start to "
-        f"exit (gloo on one card is a correctness path, not a scaling number)")
+            f"{res['launches']}; peak device memory {res['peak_gib']:.3f} GiB")
+    log(f"P13 one process (the reference): peak device memory {one['peak_gib']:.3f} GiB")
     if missed:
         fail("P13: " + "; ".join(missed))
     one["rank_peak_gib"] = ranks[0]["peak_gib"]
@@ -2579,9 +2205,7 @@ def run_p15(torch, np, one, chain):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as out:
-        t0 = time.perf_counter()
         spawn_ranks("p13_rank", world, (out, P15_GRID[1]), timeout=600)
-        spawned_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(out, f"p13_rank{r}.pt"), weights_only=False)
                  for r in range(world)]
     missed = []
@@ -2664,18 +2288,9 @@ def run_p15(torch, np, one, chain):
         f"within {drift['grid']:.3g}, {drift['whole']:.3g} and {drift['one']:.3g} of the three on "
         "every element")
     for r, res in enumerate(ranks):
-        step_ms = res["step_s"] * 1e3
-        (g_ms, g_mb), (m_ms, m_mb), (d_ms, d_mb) = res["gather"], res["model_reduce"], res["reduce"]
-        log(f"P15 rank {r} (data {res['grid'][0]}, model {res['grid'][1]}; {card}): step "
-            f"{step_ms:.3f} ms (mean of steps 2-{P13_STEPS}, host clock, synchronized); a step "
-            f"(CUDA events) all-gathers {g_mb:.2f} MB of the sharded layers' outputs in "
-            f"{g_ms:.3f} ms ({g_ms / step_ms:.1%}), all-reduces {m_mb:.2f} MB of their inputs' "
-            f"gradients over the model group in {m_ms:.3f} ms ({m_ms / step_ms:.1%}) and "
-            f"{d_mb:.2f} MB of gradients over the data group in {d_ms:.3f} ms "
-            f"({d_ms / step_ms:.1%}); peak device memory {res['peak_gib']:.3f} GiB (a P13 rank: "
-            f"{one['rank_peak_gib']:.3f} GiB); launches {res['launches']}")
-    log(f"P15: the {world} processes took {spawned_s:.1f} s from start to exit (gloo on one card "
-        f"is a correctness path, not a scaling number)")
+        log(f"P15 rank {r} (data {res['grid'][0]}, model {res['grid'][1]}): peak device memory "
+            f"{res['peak_gib']:.3f} GiB (a P13 rank: {one['rank_peak_gib']:.3f} GiB); launches "
+            f"{res['launches']}")
     if missed:
         fail("P15: " + "; ".join(missed))
     return {k: sum(res["launches"][k] for res in ranks) for k in KERNELS}
@@ -2718,9 +2333,7 @@ def run_p15_cli(torch, np):
             "(tests/test_torch_tensor_parallel.py: vae_main in 2 gloo processes)")
         return
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
-        t0 = time.perf_counter()
         spawn_ranks("p15_cli_rank", 2, (tmp, tmp), timeout=900)
-        spawned_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"p15_cli_rank{r}.pt"), weights_only=False)
                  for r in range(2)]
         (run,) = os.listdir(os.path.join(tmp, "output"))
@@ -2731,9 +2344,8 @@ def run_p15_cli(torch, np):
     (train,) = [r for r in records if "train/total_loss" in r]
     log(f"P15 CLI (spair_main, config #5, --num_model_shards 2, NCCL on 2 cards; "
         f"{card_line()}): train/total_loss {train['train/total_loss']:.4f} at step "
-        f"{P15_CLI_STEPS}, train/imgs_per_sec {train['train/imgs_per_sec']:.1f}; peak device "
-        f"memory " + ", ".join(f"{res['peak_gib']:.3f}" for res in ranks) + f" GiB; "
-        f"{spawned_s:.1f} s from start to exit")
+        f"{P15_CLI_STEPS}; peak device memory "
+        + ", ".join(f"{res['peak_gib']:.3f}" for res in ranks) + " GiB")
 
 
 P14_STEPS = 20
@@ -2742,9 +2354,11 @@ P14_STEPS = 20
 def p14_rank(rank, world, port, tmp, out):
     """A P14 process: vae_main at config #2's flags through --coordinator,
     --num_processes and --process_id on NCCL, P14_STEPS steps with one eval
-    and one checkpoint; with one process (a 1-process NCCL group, where the
-    step does no collective), the flat all-reduce on the card afterwards, on
-    tensors of the model's parameter shapes. Saves the results."""
+    and one checkpoint, the calls of the gradients' all-reduce
+    (``train/steps.py::reduce_gradients_``) counted; with one process (a
+    1-process NCCL group, where the step does no collective), the flat
+    all-reduce on the card afterwards, on tensors of the model's parameter
+    shapes. Saves the results."""
     sys.path.insert(0, HERE)
     import torch
     import torch.distributed as dist
@@ -2752,13 +2366,19 @@ def p14_rank(rank, world, port, tmp, out):
     from split_vae_torch.cli import vae_main
     from split_vae_torch.core.config import CONFIG2_IMAGE_HW, config2
     from split_vae_torch.parallel.mesh import flat_all_reduce_mean_
+    from split_vae_torch.train import steps as steps_mod
     from split_vae_torch.train.loop import build_vae_model
 
     device = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(device)
     os.chdir(tmp)
-    spans = []
-    undo = timed_collectives(torch, spans)
+    reduce, reduces = steps_mod.reduce_gradients_, []
+
+    def counted(*args, **kwargs):
+        reduces.append(1)
+        return reduce(*args, **kwargs)
+
+    steps_mod.reduce_gradients_ = counted
     reset_launches()
     try:
         vae_main.main(CONFIG2_ARGV + [
@@ -2768,27 +2388,18 @@ def p14_rank(rank, world, port, tmp, out):
             "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(world),
             "--process_id", str(rank)])
     finally:
-        undo()
+        steps_mod.reduce_gradients_ = reduce
     launches = read_launches()
-    reduce_ms = [s.elapsed_time(e) for kind, _, s, e in spans if kind == "reduce"]
     explicit = None
     if world == 1:
         model, _ = build_vae_model(config2(), CONFIG2_IMAGE_HW, device=device)
         tensors = [p.detach().clone() for p in model.parameters()]
         want = [t.clone() for t in tensors]
-        times = []
-        for _ in range(6):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            flat_all_reduce_mean_(tensors, 1)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
+        flat_all_reduce_mean_(tensors, 1)
         explicit = {"equal": all(torch.equal(a, b) for a, b in zip(tensors, want)),
-                    "ms": statistics.median(times[1:]), "first_ms": times[0],
                     "mb": sum(t.numel() for t in tensors) * 4 / 1e6}
     result = {"backend": dist.get_backend(), "world": dist.get_world_size(),
-              "launches": launches, "reduce_ms": reduce_ms, "explicit": explicit,
+              "launches": launches, "reduces": len(reduces), "explicit": explicit,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
               "device": torch.cuda.get_device_name(device)}
     torch.save(result, os.path.join(out, f"p14_rank{rank}.pt"))
@@ -2807,9 +2418,7 @@ def run_p14(torch, np):
              "one process in a 1-process NCCL group on the one card, then the flat all-reduce")
     log(f"P14 (vae_main, config #2, {P14_STEPS} steps): {which}")
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
-        t0 = time.perf_counter()
         spawn_ranks("p14_rank", world, (tmp, tmp), timeout=600)
-        spawned_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"p14_rank{r}.pt"), weights_only=False)
                  for r in range(world)]
         (run,) = os.listdir(os.path.join(tmp, "output"))
@@ -2820,10 +2429,9 @@ def run_p14(torch, np):
         if any(res["launches"].values()):
             fail(f"P14: a SPAIR kernel was launched on the VAE path: {res['launches']}")
         steps = P14_STEPS + 1
-        if world > 1 and len(res["reduce_ms"]) != steps:
-            fail(f"P14: rank {r} reduced {len(res['reduce_ms'])} times in {steps} steps")
-        reduce = (f"all-reduce in the step {statistics.median(res['reduce_ms']):.3f} ms "
-                  f"(median of {steps}, CUDA events)" if world > 1 else
+        if world > 1 and res["reduces"] != steps:
+            fail(f"P14: rank {r} reduced {res['reduces']} times in {steps} steps")
+        reduce = ("one all-reduce a step" if world > 1 else
                   "no collective in the step (a 1-rank mesh)")
         log(f"P14 rank {r} on {res['device']}: {res['backend']}, {reduce}; peak device memory "
             f"{res['peak_gib']:.3f} GiB")
@@ -2832,17 +2440,14 @@ def run_p14(torch, np):
         if not explicit["equal"]:
             fail("P14: the flat all-reduce over a 1-process NCCL group changed the tensors")
         log(f"P14: flat all-reduce of config #2's {explicit['mb']:.2f} MB of parameters over "
-            f"NCCL on the card: {explicit['ms']:.3f} ms (median of 5 after a first call of "
-            f"{explicit['first_ms']:.3f} ms, which sets up the communicator)")
+            f"NCCL on the card left them as they were")
     (train,) = [r for r in records if "train/total_loss" in r]
-    log(f"P14: train/total_loss {train['train/total_loss']:.4f} at step {P14_STEPS}, "
-        f"train/imgs_per_sec {train['train/imgs_per_sec']:.1f}; the processes took "
-        f"{spawned_s:.1f} s from start to exit")
+    log(f"P14: train/total_loss {train['train/total_loss']:.4f} at step {P14_STEPS}")
     return {k: sum(res["launches"][k] for res in ranks) for k in KERNELS}
 
 
 def main() -> None:
-    parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    parser = argparse.ArgumentParser(description="Checks of the port on one NVIDIA GPU.")
     parser.add_argument("--parent", default=None,
                         help="another checkout: also hold the full-canvas render at C = 1 and 3 "
                              "bit-equal to the kernel built from its csrc/render.cu")
@@ -3031,12 +2636,11 @@ def main() -> None:
                         start=0)
     chained_gm_check(torch, np, config3(batch_size=4, global_latent_dims=8, local_latent_dims=8,
                                         y_size=5), (32, 32), "LGGMVae")
-    launches, losses, rates = {}, {}, {}
+    launches, losses = {}, {}
     for name, cfg, windowed_render in (("P1", config5(), False), ("P2", config_bg_spair(), False),
                                        ("P3", config_glimpse_spair(), False),
                                        ("P4", config5(), True)):
-        launches[name], losses[name], rates[name] = run_path(torch, np, name, cfg,
-                                                             windowed_render)
+        launches[name], losses[name] = run_path(torch, np, name, cfg, windowed_render)
         torch.cuda.empty_cache()
     # P4 is P1 with the other render pair: the same model, batches and draws,
     # the render seeds included. The first loss differs by the two kernels'
@@ -3048,16 +2652,16 @@ def main() -> None:
         fail(f"P4's first loss {losses['P4'][0]} is not P1's {losses['P1'][0]} (rtol 1e-5)")
     log(f"P4 vs P1: first loss within {first:.3g} relative, last within "
         f"{abs(losses['P4'][-1] - losses['P1'][-1]) / abs(losses['P1'][-1]):.3g}")
-    launches["P5"], losses["P5"], rates["P5"] = run_vae_path(
+    launches["P5"], losses["P5"] = run_vae_path(
         torch, np, "P5", config2(), CONFIG2_IMAGE_HW)
     torch.cuda.empty_cache()
     # bfloat16: config #5 and config #2 again, every Dense and Conv in bfloat16,
     # the same seeds and batches; the first loss within rtol 0.02 of the
     # float32 path's (the JAX package's own contract, tests/test_bf16_mode.py).
-    launches["P10"], losses["P10"], rates["P10"] = run_path(
+    launches["P10"], losses["P10"] = run_path(
         torch, np, "P10", config5(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()
-    launches["P11"], losses["P11"], rates["P11"] = run_vae_path(
+    launches["P11"], losses["P11"] = run_vae_path(
         torch, np, "P11", config2(compute_dtype="bfloat16"), CONFIG2_IMAGE_HW)
     torch.cuda.empty_cache()
     for bf16, f32 in (("P10", "P1"), ("P11", "P5")):
@@ -3065,39 +2669,29 @@ def main() -> None:
         if not first <= 0.02:
             fail(f"{bf16}'s first loss {losses[bf16][0]} is not within rtol 0.02 of {f32}'s "
                  f"{losses[f32][0]}")
-        log(f"{bf16} (bfloat16) vs {f32} (float32): first loss within {first:.3g} relative; "
-            f"{rates[bf16]:.1f} against {rates[f32]:.1f} imgs/s")
-    # The resize2x -> conv fusion: its forms against the chain at every site,
-    # then the paths in turns of the chain and the fused forms.
-    run_resize_conv(torch, np)
+        log(f"{bf16} (bfloat16) vs {f32} (float32): first loss within {first:.3g} relative")
+    # The resize2x -> conv fusion: its forms against the chain at every site.
+    resize_conv_sites(torch)
     # The CLIs: config #5 and config #2 trained, checkpointed and resumed.
     from split_vae_torch.cli import spair_main, vae_main
 
     cli_args = ["-synthetic_data", "--eval_interval", "20", "--checkpoint_interval", "20",
                 "--log_every", "10"]
-    launches["P6"], loop_rate, _ = run_cli_path(
+    launches["P6"], _ = run_cli_path(
         torch, np, "P6", spair_main.main, CONFIG5_ARGV + cli_args + ["--batch_size", "256"],
         ("test0/", "test1/"), pngs=spair_pngs((48, 48), 4, 32, 2, 256, "lg_spair"))
-    log(f"P6: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #5, B=256; steps "
-        f"21-40 and the step-20 checkpoint's write) beside P1's timed steps {rates['P1']:.1f} "
-        f"imgs/s in this run")
     torch.cuda.empty_cache()
     p7_pngs = vae_pngs(CONFIG2_IMAGE_HW, "lgvae", svhn=False, viz=False, last_batch=64, y_size=0)
-    launches["P7"], loop_rate, _ = run_cli_path(
+    launches["P7"], _ = run_cli_path(
         torch, np, "P7", vae_main.main, CONFIG2_ARGV + cli_args, ("test/",), pngs=p7_pngs)
-    log(f"P7: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #2, B=64; steps "
-        f"21-40 and the step-20 checkpoint's write) beside P5's timed steps {rates['P5']:.1f} "
-        f"imgs/s in this run")
     torch.cuda.empty_cache()
-    launches["P12"], loop_rate, _ = run_cli_path(
+    launches["P12"], _ = run_cli_path(
         torch, np, "P12", vae_main.main,
         CONFIG2_ARGV + cli_args + ["--compute_dtype", "bfloat16"], ("test/",), first=20,
         resumed=None, pngs=p7_pngs)
-    log(f"P12: config #2 in bfloat16 through vae_main, the loop's train/imgs_per_sec at step 20 "
-        f"{loop_rate:.1f} (steps 1-20, the first step's set-up included)")
     torch.cuda.empty_cache()
     # Config #3: LGGMVae at full width, then through the CLIs with the probe.
-    launches["P8"], losses["P8"], rates["P8"] = run_vae_path(
+    launches["P8"], losses["P8"] = run_vae_path(
         torch, np, "P8", config3(), CONFIG3_IMAGE_HW)
     torch.cuda.empty_cache()
     from split_vae_torch.cli import vae_main as vae_cli
@@ -3109,16 +2703,13 @@ def main() -> None:
         shutil.copy(os.path.join(HERE, "models", DIGITS_CLASSIFIER),
                     os.path.join(tmp, "models", DIGITS_CLASSIFIER))
 
-    p9, loop_rate, records = run_cli_path(
+    p9, records = run_cli_path(
         torch, np, "P9", vae_cli.main, CONFIG3_ARGV + cli_args + ["-viz"], ("test/",),
         prepare=committed_classifier,
         pngs=vae_pngs(CONFIG3_IMAGE_HW, "lggmvae", svhn=True, viz=True, last_batch=64,
                       y_size=30))
     check_probe_records("P9", records, PROBE_KEYS)
-    log(f"P9: the loop's train/imgs_per_sec at step 40 {loop_rate:.1f} (config #3, B=64; steps "
-        f"21-40, the probe sweep at step 20 and the step-20 checkpoint's write) beside P8's "
-        f"timed steps {rates['P8']:.1f} imgs/s in this run")
-    p9_gm, loop_rate, records = run_cli_path(
+    p9_gm, records = run_cli_path(
         torch, np, "P9 gmvae", vae_cli.main,
         CONFIG3_ARGV + cli_args + ["--model", "gmvae", "-viz"], ("test/",), first=20,
         resumed=None, prepare=committed_classifier,

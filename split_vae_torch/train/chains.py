@@ -42,17 +42,20 @@ def adam_moments(opt_state):
 def float64_steps():
     """The train steps of ``train/steps.py`` in float64: their normalized
     batch and their noise cast up (a float64 model then computes in float64,
-    as the JAX package's flax layers do under float64)."""
+    as the JAX package's flax layers do under float64). The noise is that of
+    the eager step (``train/graphs.py::GraphedStep.eager``), which is every
+    call on the CPU; on the card call ``eager`` (a float64 step takes the
+    foreach optimizer, which no graph holds)."""
     from split_vae_torch.core.noise import Noise
-    from split_vae_torch.train import steps
+    from split_vae_torch.train import graphs, steps
 
     normalize = steps.normalize_images
     steps.normalize_images = lambda batch, mode: normalize(batch, mode).double()
-    steps.Noise = lambda *a, **kw: Noise(*a, **{**kw, "dtype": torch.float64})
+    graphs.Noise = lambda *a, **kw: Noise(*a, **{**kw, "dtype": torch.float64})
     try:
         yield
     finally:
-        steps.normalize_images, steps.Noise = normalize, Noise
+        steps.normalize_images, graphs.Noise = normalize, Noise
 
 
 def metric_gap(want: List[Mapping[str, float]],

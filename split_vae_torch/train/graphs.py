@@ -31,18 +31,21 @@ metrics``, which updates the state in place:
   the captured body counted are counted again at every replay, since its
   kernels launch again; ``state.step`` advances by one a call.
 
-The step runs eagerly on the CPU, with the port's tracing on (the spans
-need each step's Python), under autograd's anomaly mode (``--debug_nans``,
-which reads every gradient on the host), where a draw has no static form (a
-permutation) and where the capture fails (a body that waits for the card).
-The counters ``step.graphed`` (a replay) and ``step.eager`` (a call that ran
-the body's Python eagerly: a recording, a fallback, tracing, anomaly mode,
-the CPU) say which path each call took.
-Data and tensor parallelism keep the eager step (``steps.py`` decides).
+This module alone decides between the graph and the eager step. The step
+runs eagerly on a mesh of more than one process (data and tensor
+parallelism: its draws take the mesh's data rank and size), on the CPU, with
+the port's tracing on (the spans need each step's Python), under autograd's
+anomaly mode (``--debug_nans``, which reads every gradient on the host),
+where a draw has no static form (a permutation) and where the capture fails
+(a body that waits for the card; a warning names the error, once a batch
+shape). The counters ``step.graphed`` (a replay) and ``step.eager`` (a call
+that ran the body's Python eagerly: a recording, a fallback, several
+processes, tracing, anomaly mode, the CPU) say which path each call took.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -51,6 +54,7 @@ import torch
 from split_vae_torch.core import tracing
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.core.state import TrainState, tree_tensors
+from split_vae_torch.parallel.mesh import Mesh
 
 Body = Callable[[TrainState, torch.Tensor, Noise], Dict[str, torch.Tensor]]
 
@@ -140,19 +144,24 @@ class _Shape:
 
 class GraphedStep:
     """``train_step(state, batch, replay=None) -> (state, metrics)`` over
-    ``body`` (the module's docstring). ``capture`` stands in for
-    ``cuda_capture`` in the tests, on any device; without it only CUDA
-    batches are captured."""
+    ``body`` (the module's docstring), on this process's place in ``mesh``.
+    ``capture`` stands in for ``cuda_capture`` in the tests, on any device;
+    without it only CUDA batches are captured."""
 
-    def __init__(self, body: Body, capture: Optional[Callable] = None):
+    def __init__(self, body: Body, mesh: Mesh = Mesh(), capture: Optional[Callable] = None):
         self.body = body
+        self.mesh = mesh
         self.capture = capture or cuda_capture
         self.any_device = capture is not None
         self.shapes: Dict[tuple, _Shape] = {}
 
     def eager(self, state: TrainState, batch: torch.Tensor,
               replay: Optional[Sequence[torch.Tensor]] = None):
-        return self._eager(state, batch, Noise(state.generator, replay, step=state.step))
+        """The step without a graph; its draws are this rank's rows of the
+        global batch's."""
+        noise = Noise(state.generator, replay, rank=self.mesh.data_rank,
+                      world=self.mesh.data_size, step=state.step)
+        return self._eager(state, batch, noise)
 
     def _eager(self, state: TrainState, batch: torch.Tensor, noise: Noise):
         tracing.count("step.eager")
@@ -161,7 +170,7 @@ class GraphedStep:
 
     def __call__(self, state: TrainState, batch: torch.Tensor,
                  replay: Optional[Sequence[torch.Tensor]] = None):
-        if (tracing.enabled() or torch.is_anomaly_enabled()
+        if (self.mesh.world > 1 or tracing.enabled() or torch.is_anomaly_enabled()
                 or not (self.any_device or batch.is_cuda)):
             return self.eager(state, batch, replay)
         key = (tuple(batch.shape), batch.dtype, batch.device)
@@ -217,15 +226,19 @@ class GraphedStep:
 
     def _capture(self, shape: _Shape, state: TrainState, batch: torch.Tensor) -> bool:
         """Captures the body over static copies; False (and the shape left to
-        the eager step) where the capture fails or the body would put new
-        tensors in the state. The state is as it was either way."""
+        the eager step) where the capture fails, which warns, or the body
+        would put new tensors in the state. The state is as it was either
+        way."""
         step, opt_state, counted = state.step, state.opt_state, tracing.counters()
         shape.batch = batch.clone()
         try:
             shape.replay, shape.out = self.capture(
                 lambda: self.body(state, shape.batch, _Static(state.generator, shape)))
             kept = fingerprint(state) == shape.state
-        except Exception:  # a body the capture cannot take: it waits for the card
+        except Exception as e:  # a body the capture cannot take: it waits for the card
+            warnings.warn(f"a CUDA graph could not capture the train step of batch shape "
+                          f"{tuple(batch.shape)}, which runs eagerly from now on: "
+                          f"{type(e).__name__}: {e}", RuntimeWarning, stacklevel=3)
             kept = False
         after = tracing.counters()
         state.step, state.opt_state = step, opt_state

@@ -123,7 +123,7 @@ def vae_loss_fn(config) -> Callable:
     raise NotImplementedError(config.model)
 
 
-def make_vae_train_step(config, mesh: Mesh = Mesh(), graphed: bool = True) -> Callable:
+def make_vae_train_step(config, mesh: Mesh = Mesh()) -> Callable:
     """Returns train_step(state, batch, replay=None) -> (state, metrics) for
     LGVae, LGGMVae or GMVae (config.model); ``batch`` is this rank's rows.
 
@@ -132,9 +132,8 @@ def make_vae_train_step(config, mesh: Mesh = Mesh(), graphed: bool = True) -> Ca
     docstrings). ``replay`` (tests only) lists them in that order; otherwise
     they come from ``state.generator``.
 
-    On one process the step runs as one CUDA graph on the card once it has
-    seen a batch shape (``train/graphs.py``); ``graphed=False`` keeps every
-    step eager.
+    ``train/graphs.py`` decides where the step runs as one CUDA graph; its
+    ``eager`` runs the step without one.
     """
     loss_of = vae_loss_fn(config)
     use_fp32()
@@ -150,16 +149,7 @@ def make_vae_train_step(config, mesh: Mesh = Mesh(), graphed: bool = True) -> Ca
         del out  # the outputs the backward does not keep go before it
         return _apply(state, total, metrics, mesh)
 
-    if graphed and mesh.world == 1:
-        return GraphedStep(body)
-
-    def train_step(state: TrainState, batch: torch.Tensor,
-                   replay: Optional[Sequence[torch.Tensor]] = None):
-        with tracing.span("step"):
-            noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size)
-            return state, body(state, batch, noise)
-
-    return train_step
+    return GraphedStep(body, mesh)
 
 
 def make_vae_eval_step(config, model) -> Callable:
@@ -183,7 +173,7 @@ def make_vae_eval_step(config, model) -> Callable:
 
 
 def make_spair_train_step(config, windowed_render: bool = False,
-                          mesh: Mesh = Mesh(), graphed: bool = True) -> Callable:
+                          mesh: Mesh = Mesh()) -> Callable:
     """Returns train_step(state, batch, replay=None) -> (state, metrics);
     ``batch`` is this rank's rows.
 
@@ -196,9 +186,8 @@ def make_spair_train_step(config, windowed_render: bool = False,
     Metrics are 0-d tensors on the device.
 
     The anneals read the step's count on the device (``Noise.step``), so the
-    step copies nothing from the host. On one process the step runs as one
-    CUDA graph on the card once it has seen a batch shape
-    (``train/graphs.py``); ``graphed=False`` keeps every step eager.
+    step copies nothing from the host. ``train/graphs.py`` decides where the
+    step runs as one CUDA graph; its ``eager`` runs the step without one.
     """
     use_fp32()
 
@@ -213,17 +202,7 @@ def make_spair_train_step(config, windowed_render: bool = False,
         del out  # the outputs the backward does not keep go before it
         return _apply(state, total, metrics, mesh)
 
-    if graphed and mesh.world == 1:
-        return GraphedStep(body)
-
-    def train_step(state: TrainState, batch: torch.Tensor,
-                   replay: Optional[Sequence[torch.Tensor]] = None):
-        with tracing.span("step"):
-            noise = Noise(state.generator, replay, rank=mesh.data_rank, world=mesh.data_size,
-                          step=state.step)
-            return state, body(state, batch, noise)
-
-    return train_step
+    return GraphedStep(body, mesh)
 
 
 def make_spair_eval_step(config, model) -> Callable:

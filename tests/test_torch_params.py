@@ -5,8 +5,8 @@ Every leaf of a flax tree of each SPAIR model and of LGVae converts into the
 port's state_dict and back unchanged; a leaf with no counterpart on either side
 raises; the port initialises every family that train/loop.py builds (the
 four SPAIR models, LGVae, LGGMVae, GMVae and the probe classifier) by the JAX
-package's scheme; and no module of the port, nor chip_smoke.py, quality_runs_torch.py,
-crop_layer_turns.py or bf16_turns.py, imports jax, flax, optax, msgpack, the JAX package, its
+package's scheme; and no module of the port, nor chip_smoke.py or
+quality_runs_torch.py, imports jax, flax, optax, msgpack, the JAX package, its
 research tools, matplotlib or PIL (the real datasets' JPEG readers alone
 import PIL).
 """
@@ -293,8 +293,6 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "quality_runs_torch.py")
-    yield os.path.join(REPO, "crop_layer_turns.py")
-    yield os.path.join(REPO, "bf16_turns.py")
 
 
 # The readers of the real datasets' JPEG files, which the card's machine does not

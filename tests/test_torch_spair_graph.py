@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from test_torch_graphs import (  # noqa: E402
     B,
+    CAPTURE_FAILED,
     D,
     H,
     Log,
@@ -278,7 +279,8 @@ def test_the_counters_say_which_path_ran():
     failing = make_state()
     before = tracing.counters()
     eager_state = make_state()
-    got = run(GraphedStep(seeded, capture=refuse), failing, 3)
+    with pytest.warns(RuntimeWarning, match=CAPTURE_FAILED):
+        got = run(GraphedStep(seeded, capture=refuse), failing, 3)
     assert moved(before) == {"step.graphed": 0, "step.eager": 3}
     same_metrics(got, run(GraphedStep(seeded).eager, eager_state, 3))
     same_states(failing, eager_state)
@@ -294,7 +296,7 @@ def tiny_spair():
 
 def test_the_spair_step_records_its_seed_and_its_step():
     """On the CPU the foreach optimizer replaces its state, so the capture
-    is dropped and the step stays eager, equal to the ungraphed step; its
+    is dropped and the step stays eager, equal to its ``eager``; its
     recording saw the render seed, the last draw, and the step read."""
     cfg, x = tiny_spair()
     outs, states = [], []
@@ -303,14 +305,15 @@ def test_the_spair_step_records_its_seed_and_its_step():
         state = create_train_state(get_spair_model(cfg, device="cpu"),
                                    spair_optimizer(cfg.learning_rate), seed=3)
         state.step = 9_998
-        step = make_spair_train_step(cfg, graphed=graph)
+        step = make_spair_train_step(cfg)
         if graph:
             log = Log()
             log.state = state
             step.capture, step.any_device = stand_in(log), True
+        call = step if graph else step.eager
         out = []
         for _ in range(3):
-            state, m = step(state, x)
+            state, m = call(state, x)
             out.append({k: v.clone() for k, v in m.items()})
         outs.append(out)
         states.append(state)
