@@ -41,10 +41,22 @@ where a draw has no static form (a permutation) and where the capture fails
 shape). The counters ``step.graphed`` (a replay) and ``step.eager`` (a call
 that ran the body's Python eagerly: a recording, a fallback, several
 processes, tracing, anomaly mode, the CPU) say which path each call took.
+
+Every call that runs the body's Python runs it under cuDNN's autotuner
+(``autotuned``): the first time cuDNN meets a convolution's shape there, it
+times its engines and keeps the fastest in PyTorch's process-wide plan cache
+(keyed by the shapes, layout, dtype, determinism and TF32, not by the
+autotuner's flag). The recording of a batch shape meets every convolution
+its graph runs, so the capture, which runs under the caller's settings,
+and every replay take the tuned plans and time nothing. TF32 stays off and
+``deterministic`` as the caller set it (tuning then chooses among the
+deterministic engines); the caller's settings come back after the body.
+The counter ``step.autotuned`` counts a batch shape's first recording.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -57,6 +69,29 @@ from split_vae_torch.core.state import TrainState, tree_tensors
 from split_vae_torch.parallel.mesh import Mesh
 
 Body = Callable[[TrainState, torch.Tensor, Noise], Dict[str, torch.Tensor]]
+
+# How many of its engines cuDNN times for each new convolution shape of a
+# train step (``torch.backends.cudnn.benchmark_limit``; 0 would time every
+# one). Each costs three timed runs, once a shape in a process, in the
+# recording step; the fastest then runs at every step. On an H100, 5 took
+# configs #2, #4 and #5's recording steps 0.5-1.6 s longer than cuDNN's
+# heuristic and ran their steps in 17% less time; timing every engine took
+# 2.5-5% off again, for 1-6 s of set-up, most at config #5's B=256.
+AUTOTUNE_LIMIT = 5
+
+
+@contextlib.contextmanager
+def autotuned():
+    """cuDNN's autotuner on, TF32 off; the caller's ``benchmark``,
+    ``benchmark_limit``, ``deterministic`` and ``allow_tf32`` back after,
+    whatever the block raised."""
+    cudnn = torch.backends.cudnn
+    was = (cudnn.benchmark, cudnn.benchmark_limit, cudnn.deterministic, cudnn.allow_tf32)
+    cudnn.benchmark, cudnn.benchmark_limit, cudnn.allow_tf32 = True, AUTOTUNE_LIMIT, False
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit, cudnn.deterministic, cudnn.allow_tf32 = was
 
 
 class _Recorder(Noise):
@@ -165,7 +200,7 @@ class GraphedStep:
 
     def _eager(self, state: TrainState, batch: torch.Tensor, noise: Noise):
         tracing.count("step.eager")
-        with tracing.span("step"):
+        with tracing.span("step"), autotuned():
             return state, self.body(state, batch, noise)
 
     def __call__(self, state: TrainState, batch: torch.Tensor,
@@ -195,6 +230,8 @@ class GraphedStep:
         """The eager step, recording its draws for the graph of this shape."""
         noise = _Recorder(state.generator, replay, step=state.step)
         state, metrics = self._eager(state, batch, noise)
+        if key not in self.shapes:
+            tracing.count("step.autotuned")
         self.shapes[key] = _Shape(fingerprint(state), batch.device, noise.draws, noise.seeds,
                                   noise.reads_step, eager=not noise.static)
         return state, metrics

@@ -15,6 +15,7 @@ step.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import pytest
@@ -23,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from split_vae_torch.core import tracing  # noqa: E402
 from split_vae_torch.core.state import TrainState, tree_tensors  # noqa: E402
+from split_vae_torch.train import graphs  # noqa: E402
 from split_vae_torch.train.graphs import GraphedStep  # noqa: E402
 
 torch.set_num_threads(1)
@@ -334,14 +336,136 @@ def test_the_vae_step_on_the_cpu_is_the_eager_step():
     assert log == ["capture"]
 
 
+CUDNN = ("benchmark", "benchmark_limit", "deterministic", "allow_tf32")
+
+
+def cudnn_settings():
+    return {k: getattr(torch.backends.cudnn, k) for k in CUDNN}
+
+
+@pytest.fixture
+def caller_cudnn():
+    """The caller's cuDNN settings, none of them the autotuner's: the
+    autotuner off, another limit, deterministic, TF32 allowed; put back
+    after the test."""
+    was = cudnn_settings()
+    want = {"benchmark": False, "benchmark_limit": 3, "deterministic": True,
+            "allow_tf32": True}
+    for k, v in want.items():
+        setattr(torch.backends.cudnn, k, v)
+    yield want
+    for k, v in was.items():
+        setattr(torch.backends.cudnn, k, v)
+
+
+def seeing(log, inner=body):
+    """``inner``, logging the cuDNN settings each call of its Python saw."""
+    def looking(state, batch, noise):
+        log.append(cudnn_settings())
+        return inner(state, batch, noise)
+    return looking
+
+
+# What each call of the body's Python sees, by the path that ran it.
+TUNED = {"benchmark": True, "benchmark_limit": graphs.AUTOTUNE_LIMIT, "deterministic": True,
+         "allow_tf32": False}
+
+
+@pytest.mark.parametrize("path", ["recording", "fallback", "eager", "several processes"])
+def test_the_body_runs_under_the_autotuner(path, caller_cudnn):
+    """The body's Python runs with cuDNN's autotuner on, at the module's
+    limit, TF32 off though the caller allows it, and ``deterministic`` as
+    the caller set it: where it records a batch shape, on an eager fallback
+    after a failed capture, in ``eager`` and on a mesh of several
+    processes."""
+    from split_vae_torch.parallel.mesh import Mesh
+
+    def drawing(state, batch, noise):
+        state.step += 1
+        return {"u": noise.uniform((batch.shape[0], D), per_example=True)}
+
+    def refuse(fn):
+        computing_nothing(state, fn)
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    state = make_state()
+    seen = []
+    if path == "several processes":
+        step = GraphedStep(seeing(seen, drawing), Mesh(rank=0, world=2))
+    else:
+        step = GraphedStep(seeing(seen), capture=refuse)
+    if path == "fallback":
+        with pytest.warns(RuntimeWarning, match=CAPTURE_FAILED):
+            run(step, state, 4)
+        seen = seen[2:]  # past the recording and the failed capture
+    else:
+        run(step.eager if path == "eager" else step, state, 1 if path == "recording" else 2)
+    assert seen and all(s == TUNED for s in seen), seen
+    assert cudnn_settings() == caller_cudnn
+
+
+def test_the_capture_and_replays_run_under_the_callers_settings(caller_cudnn):
+    """The recording alone tunes: the capture and the replays meet only
+    shapes the recording met, under the caller's settings."""
+    state = make_state()
+    seen = []
+    log = Log()
+    log.state = state
+    step = GraphedStep(seeing(seen), capture=stand_in(log))
+    run(step, state, 4)
+    assert log == ["capture", "replay", "replay", "replay"]
+    assert seen[0] == TUNED
+    assert seen[1:] == [caller_cudnn] * 4  # the capture, then three replays
+
+
+@pytest.mark.parametrize("raises", [False, True])
+@pytest.mark.parametrize("path", ["recording", "eager"])
+def test_the_callers_cudnn_settings_come_back(path, raises, caller_cudnn):
+    """After the body returns, and after it raises, cuDNN's settings are the
+    caller's again."""
+    def failing(state, batch, noise):
+        out = body(state, batch, noise)
+        if raises:
+            raise ValueError("the body failed")
+        return out
+
+    state = make_state()
+    step, _ = graphed(state)
+    step.body = failing
+    call = step if path == "recording" else step.eager
+    with pytest.raises(ValueError) if raises else contextlib.nullcontext():
+        call(state, batches(1)[0])
+    assert cudnn_settings() == caller_cudnn
+
+
+def test_the_autotuned_counter_counts_each_recorded_shape():
+    """``step.autotuned`` counts a batch shape's first recording: once for
+    each of two shapes, not on the replays, the eager calls or a second
+    recording of a shape whose state was replaced."""
+    state = make_state()
+    step, log = graphed(state)
+    before = tracing.counters().get("step.autotuned", 0)
+    counted = []
+    for rows in (B, 2):
+        run(step, state, 4, rows=rows)
+        counted.append(tracing.counters().get("step.autotuned", 0) - before)
+    state.opt_state = copy.deepcopy(state.opt_state)
+    run(step, state, 3)
+    run(step.eager, state, 2)
+    counted.append(tracing.counters().get("step.autotuned", 0) - before)
+    assert counted == [1, 2, 2]
+    assert log.count("capture") == 3 and log.count("replay") == 3 + 3 + 2
+
+
 @pytest.mark.card
 @pytest.mark.filterwarnings(f"error:{CAPTURE_FAILED}")
 @pytest.mark.parametrize("replayed", [False, True])
 def test_the_captured_gm_step_is_the_eager_step(replayed):
     """Config #4's step at a small size on the card, captured, against the
-    eager step from the same weights and generator (cuDNN deterministic):
-    five steps, the metrics to float32's rounding, the parameters within
-    Adam's steps, three fused optimizer launches a step."""
+    eager step from the same weights and generator (cuDNN deterministic,
+    its engines timed by the autotuner among the deterministic ones): five
+    steps, the metrics to float32's rounding, the parameters within Adam's
+    steps, three fused optimizer launches a step, one batch shape tuned."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card on this machine")
     from split_vae_torch.core.config import config4
@@ -370,7 +494,7 @@ def test_the_captured_gm_step_is_the_eager_step(replayed):
             step = make_vae_train_step(cfg)
             call = step if graph else step.eager
             g = torch.Generator(device=card).manual_seed(1)
-            before = tracing.counters().get("optim.fused", 0)
+            before = tracing.counters()
             out = []
             for _ in range(5):
                 batch = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8, device=card,
@@ -380,10 +504,14 @@ def test_the_captured_gm_step_is_the_eager_step(replayed):
                 state, m = call(state, batch, replay=draws)
                 out.append({k: v.clone() for k, v in m.items()})
             torch.cuda.synchronize()
-            runs.append((state, out, tracing.counters().get("optim.fused", 0) - before))
+            after = tracing.counters()
+            runs.append((state, out, {k: after.get(k, 0) - before.get(k, 0)
+                                      for k in ("optim.fused", "step.autotuned")}))
         (eager, want, n_eager), (state, got, n_graph) = runs
         assert state.step == eager.step == 5
-        assert n_graph == n_eager == 15
+        assert n_eager == {"optim.fused": 15, "step.autotuned": 0}
+        assert n_graph == {"optim.fused": 15, "step.autotuned": 1}
+        assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
         # Captured, the step's sums need not keep the eager order: over five
         # steps the metrics agree to float32's rounding (1.28e-5 at most on
         # an H100), and no parameter is more than Adam's steps apart (a
@@ -417,10 +545,11 @@ def test_the_captured_spair_step_is_the_eager_step(model, extra, windowed, captu
     """Config #5's step at a small size on the card, full canvas and
     windowed render (and the other SPAIR models' steps), captured, against
     the eager step from the same weights and generator (cuDNN
-    deterministic): five steps over which the anneals move (they end at
+    deterministic, its engines timed by the autotuner among the
+    deterministic ones): five steps over which the anneals move (they end at
     step 4), the metrics to float32's rounding, the parameters within Adam's
     steps, the generator where the eager step leaves it (one render seed a
-    step), and four replays after the recording."""
+    step), and four replays after the one recording, its shape tuned."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card on this machine")
     from split_vae_torch.core.config import config5
@@ -452,12 +581,15 @@ def test_the_captured_spair_step_is_the_eager_step(model, extra, windowed, captu
             torch.cuda.synchronize()
             after = tracing.counters()
             runs.append((state, out, {k: after.get(k, 0) - before.get(k, 0)
-                                      for k in ("step.graphed", "step.eager")}))
+                                      for k in ("step.graphed", "step.eager",
+                                                "step.autotuned")}))
         (eager, want, n_eager), (state, got, n_graph) = runs
         assert state.step == eager.step == 5
-        assert n_eager == {"step.graphed": 0, "step.eager": 5}
-        assert n_graph == ({"step.graphed": 4, "step.eager": 1} if captured
-                           else {"step.graphed": 0, "step.eager": 5})
+        assert n_eager == {"step.graphed": 0, "step.eager": 5, "step.autotuned": 0}
+        assert n_graph == ({"step.graphed": 4, "step.eager": 1, "step.autotuned": 1}
+                           if captured else
+                           {"step.graphed": 0, "step.eager": 5, "step.autotuned": 1})
+        assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
         assert torch.equal(state.generator.get_state(), eager.generator.get_state())
         gaps = [abs(float(x[k]) - float(y[k])) / max(abs(float(y[k])), 1e-3)
                 for x, y in zip(got, want) for k in y]
