@@ -13,7 +13,8 @@ and row-windowed, and the STN glimpse crop), and the VAE-family train steps
       background and local paths);
   P2  BG-SPAIR at the SpairConfig defaults (32-px objects);
   P3  LGGlimpseSPAIR with 28-px objects in 4-px patches, the shapes that are
-      not multiples of 8;
+      not multiples of 8 (its step graphed like the others: the patch
+      permutation is a static draw), one glimpse scramble a step;
   P4  P1's configuration, model and seed with the row-windowed render
       selected in place of the full-canvas one;
   P5  LGVae (SPLIT-VAE) at BASELINE config #2 (CelebA 64x64, B=64, patch 8,
@@ -121,7 +122,9 @@ Phases, each of which must pass:
      devices, since the Gumbel softmax's backward cancels below the float32
      tolerance), then P16's chained steps (above), then each main path:
      TRAIN_STEPS train steps (run_steps) with the kernels' launch counts set
-     to 0 before and read after, every loss finite, no update skipped, no
+     to 0 before and read after, every step after the first a CUDA graph
+     replay (step.graphed, step.eager; LGGlimpseSPAIR's glimpse.scramble one
+     a step), every loss finite, no update skipped, no
      call of interp_matrix (no dense interpolation weights), the fused
      optimizer's three launches a step, the parameters and the optimizer's
      state float32 after the steps and the peak device memory; then one eval
@@ -879,9 +882,13 @@ class RecordingNoise:
     def uniform_like(self, t, per_example=None):
         return self.uniform(t.shape, t.dtype)
 
-    def permutation(self, n):
-        self.drawn.append(self.noise.permutation(n))
-        return self.drawn[-1]
+    def batch_permutation(self, n, batch):
+        import torch
+
+        from split_vae_torch.core.noise import Noise
+
+        u = self.uniform((batch, n), torch.float64)
+        return Noise(self.noise.generator, [u]).batch_permutation(n, batch)
 
     def keep(self, shape, rate, per_example=None):
         self.drawn.append(self.noise.keep(shape, rate))
@@ -1164,10 +1171,26 @@ def read_launches():
 FUSED_BY_PATH = {}  # the fused optimizer's launches (kernels/adam.py) on each main path
 
 
+def read_counts(names):
+    """The counters ``names`` since ``reset_launches``."""
+    from split_vae_torch.core import tracing
+    now = tracing.counters()
+    return {k: now.get(k, 0) - _LAUNCHES_FROM.get(k, 0) for k in names}
+
+
 def read_fused() -> int:
     """The fused optimizer's launches (``optim.fused``) since ``reset_launches``."""
-    from split_vae_torch.core import tracing
-    return tracing.counters().get("optim.fused", 0) - _LAUNCHES_FROM.get("optim.fused", 0)
+    return read_counts(("optim.fused",))["optim.fused"]
+
+
+def hold_graphed(name, steps, scrambles=0):
+    """Fails unless the train step recorded once and replayed its graph at
+    every later step, and LGGlimpseSPAIR scrambled its glimpses once a step."""
+    got = read_counts(("step.graphed", "step.eager", "glimpse.scramble"))
+    want = {"step.graphed": steps - 1, "step.eager": 1, "glimpse.scramble": scrambles}
+    if got != want:
+        fail(f"{name}: the train steps took the paths {got}, not {want}")
+    return got
 
 
 def hold_fused_optimizer(name, launched, steps):
@@ -1272,6 +1295,8 @@ def run_path(torch, np, name, cfg, windowed_render=False):
     with CountInterpMatrix() as dense:
         state, losses = run_steps(torch, np, name, train_step, state, batches)
     launches = read_launches()
+    paths = hold_graphed(name, len(losses),
+                         len(losses) if cfg.model == "lg_glimpse_spair" else 0)
     hold_fused_optimizer(name, read_fused(), len(losses))
     check_float32_state(name, state)
     if dense.calls:
@@ -1286,8 +1311,8 @@ def run_path(torch, np, name, cfg, windowed_render=False):
                      f"{used} pair")
         elif n < len(losses) or (kernel.startswith("crop") and n != len(losses)):
             fail(f"{name}: {kernel} kernel launched {n} times in {len(losses)} steps")
-    log(f"{name}: no interp_matrix in the train steps; launches {launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{name}: no interp_matrix in the train steps; launches {launches}; paths {paths}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # One eval step with labels (random counts: the weights are random too).
     labels = torch.from_numpy(rng.randint(0, 7, cfg.batch_size).astype(np.float32)).cuda()
@@ -1327,6 +1352,7 @@ def run_vae_path(torch, np, name, cfg, hw):
     reset_launches()
     state, losses = run_steps(torch, np, name, train_step, state, batches)
     launches = read_launches()
+    hold_graphed(name, len(losses))
     hold_fused_optimizer(name, read_fused(), len(losses))
     check_float32_state(name, state)
     if any(launches.values()):

@@ -4,7 +4,8 @@ Same fields and defaults as ``split_vae_tpu/core/config.py`` (BaseConfig,
 VaeConfig, SpairConfig and ClassifierConfig), with the reference CLIs' parsers
 ``parse_vae_args`` and ``parse_spair_args``. ``config5``
 gives BASELINE config #5 (LG-SPAIR on Multi-Bird-Hard) as
-``bench.py::measure_spair`` sets it, ``config2`` BASELINE config #2 (LGVae on
+``bench.py::measure_spair`` sets it, ``config5_glimpse`` config #5's flags
+with the glimpse-local model (LGGlimpseSPAIR), ``config2`` BASELINE config #2 (LGVae on
 CelebA 64x64) as ``bench.py::measure`` sets it, ``config3`` BASELINE config #3
 (SPLIT-GMVAE on SVHN 32x32), ``config4`` BASELINE config #4 (SPLIT-GMVAE on
 CelebA 64x64); ``config_bg_spair`` and
@@ -210,6 +211,22 @@ CONFIG5 = dict(
 
 def config5(**overrides) -> SpairConfig:
     return SpairConfig(**{**CONFIG5, **overrides})
+
+
+# Config #5's published flags with the glimpse-local model: the README's
+# config #5 command (``CONFIG5G_ARGV``) with ``--model lg_glimpse_spair``, at
+# config #5's batch of 256 (the CLI's default is 32). ``split_z_l``,
+# ``dense_local`` and ``concat_z_what`` are LG-SPAIR's and inert here, as is
+# ``z_l_beta`` (the loss weighs z_l inside the concat z_what KL).
+CONFIG5G_ARGV = ("--dataset", "cub_ckb_rot_6", "--z_bg_beta", "1", "--patch_size", "8",
+                 "--latent_size", "64", "--bg_latent_size", "64", "--local_latent_size", "64",
+                 "--model", "lg_glimpse_spair", "-split_z_l", "--z_what_beta", "0.5",
+                 "-concat_z_what", "-dense_local", "-dense_bg", "--training_steps", "200000")
+CONFIG5G = dict(CONFIG5, model="lg_glimpse_spair", training_steps=200_000)
+
+
+def config5_glimpse(**overrides) -> SpairConfig:
+    return SpairConfig(**{**CONFIG5G, **overrides})
 
 
 # BASELINE config #2: LGVae (SPLIT-VAE) on CelebA 64x64 (bench.py:81-82). The

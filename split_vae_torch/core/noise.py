@@ -14,8 +14,9 @@ of the global batch. Each draw says whether it is
 rows of it such as B*K cells): such a draw is taken at the global shape,
 world times the leading dimension, and the rank keeps its block of rows, so
 every rank's generator, seeded alike, advances alike and the N-rank draws are
-the 1-rank draws. A draw shared by the whole batch (the patch permutation,
-the render seed) is ``per_example=False`` and the same on every rank. The
+the 1-rank draws. A draw shared by the whole batch (the glimpse scramble's
+patch permutation, the render seed) is ``per_example=False`` and the same on
+every rank. The
 marking is explicit at every draw site; with one rank it may be left out
 (the eval sweeps and the figures run on one rank). Replayed draws follow the
 same rule: a per-example one is replayed at the global shape and sliced.
@@ -104,10 +105,23 @@ class Noise:
 
     def permutation(self, n: int) -> torch.Tensor:
         """A random permutation of range(n), int64, the same on every rank; a
-        replayed one is taken as it is."""
+        replayed one is taken as it is. ``torch.randperm`` has no static
+        form, so a step that draws one is never graphed (``train/graphs.py``):
+        the eval sweeps and the figures draw these."""
         if self._replay is not None:
             return self._next((n,)).to(torch.int64)
         return torch.randperm(n, generator=self.generator, device=self.device)
+
+    def batch_permutation(self, n: int, batch: int) -> torch.Tensor:
+        """One random permutation of range(n) for this rank's ``batch`` rows,
+        int64, the same on every rank: the argsort of row 0 of [global batch,
+        n] float64 uniforms, made on the device. The uniforms are one static
+        draw (a CUDA graph replays it), drawn whole on every rank and
+        batch-major, so the first rows of a replayed draw give the same
+        permutation to a smaller batch. In float64 two of the n uniforms tie,
+        which would bias the argsort, next to never."""
+        u = self.uniform((batch * self.world, n), torch.float64, per_example=False)
+        return torch.argsort(u[0], stable=True)
 
     def seed(self) -> torch.Tensor:
         """An int32 seed in [0, 2^31 - 1), as a one-element tensor on the device

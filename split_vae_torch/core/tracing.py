@@ -20,7 +20,10 @@ update); ``counters()`` is a copy of them all. The kernels count their
 launches here (``render.fwd``, ``render.bwd``, ``render_windowed.fwd``,
 ``render_windowed.bwd``, ``crop.fwd``, ``crop.bwd``); the train step its
 path (``step.graphed``, ``step.eager``) and the batch shapes it recorded
-under cuDNN's autotuner (``step.autotuned``, ``train/graphs.py``).
+under cuDNN's autotuner (``step.autotuned``, ``train/graphs.py``);
+LGGlimpseSPAIR its glimpse scrambles (``glimpse.scramble``,
+``nn/spair_nets.py::ObjEncoderScramble``). A graph replay counts again what
+its capture counted.
 """
 
 from __future__ import annotations

@@ -215,7 +215,8 @@ class LGSPAIR(_SpairBase):
 class LGGlimpseSPAIR(_SpairBase):
     """Glimpse-local SPLIT-SPAIR: SPAIR with a background VAE, per-cell local
     latents from patch-scrambled glimpses (``ObjEncoderScramble``) and a
-    per-glimpse decoder that reconstructs the scrambled view."""
+    per-glimpse decoder that reconstructs the scrambled view. The span
+    ``forward.glimpse_decode`` holds that decoder."""
 
     def __init__(self, image_hw: Tuple[int, int], object_size: int, latent_size: int,
                  tau: float, num_channel: int = 3, bg_latent_size: int = 4,
@@ -244,7 +245,8 @@ class LGGlimpseSPAIR(_SpairBase):
 
         bg_recon = self.bg_decoder(z_bg)
         b, gh, gw, d = z_l.shape
-        x_hat_recon = self.x_hat_decoder(z_l.reshape(b * gh * gw, d))
+        with tracing.span("forward.glimpse_decode"):
+            x_hat_recon = self.x_hat_decoder(z_l.reshape(b * gh * gw, d))
         x_hat_recon = x_hat_recon.reshape(b, gh * gw, os_, os_, c)
         return self.decode_render(enc, bg_recon, training, fused, noise, windowed=windowed,
                                   z_bg=z_bg, z_bg_mean=z_bg_mean, z_bg_sig=z_bg_sig,

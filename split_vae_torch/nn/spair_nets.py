@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from split_vae_torch.core import tracing
 from split_vae_torch.core.noise import Noise
 from split_vae_torch.kernels import render as render_kernels
 from split_vae_torch.kernels import render_windowed as windowed_kernels
@@ -195,7 +196,13 @@ class ObjEncoderScramble(nn.Module):
     """Per-glimpse encoder that also gives a per-glimpse local latent from a
     patch-scrambled view of each glimpse (spair/spair.py:275-338, as the JAX
     package settles it): one patch permutation shared by all glimpses of the
-    batch, and the reassembled scrambled glimpse returned as the x_hat target.
+    batch (``Noise.batch_permutation``, a static draw, so the step is
+    graphed), and the reassembled scrambled glimpse returned as the x_hat
+    target. The draws keep the JAX package's order: the permutation, z_what's
+    normals, z_l's. The span ``forward.glimpse_local`` holds the scramble and
+    the local head (and the draw of z_what's normals, which falls between
+    them), not the what head, which ``ObjEncoder`` runs too; the counter
+    ``glimpse.scramble`` counts the scrambles.
     """
 
     def __init__(self, object_size: int, num_channel: int, latent_size: int, patch_size: int,
@@ -223,17 +230,18 @@ class ObjEncoderScramble(nn.Module):
         x = glimpses.reshape(b * k, gh, gw, c)
         p = self.patch_size
         nh, nw = gh // p, gw // p
-        patches = x.reshape(b * k, nh, p, nw, p, c).permute(0, 1, 3, 2, 4, 5)
-        patches = patches.reshape(b * k, nh * nw, p, p, c)
-        patches = patches[:, noise.permutation(nh * nw)]  # one for the batch, every rank's
-        x_hat = patches.reshape(b * k, nh, nw, p, p, c).permute(0, 1, 3, 2, 4, 5)
-        x_hat = x_hat.reshape(b * k, gh, gw, c)
-
         z_what_mean, z_what_sigma = self._vae_head(x, "what")
-        z_what = reparameterize(z_what_mean, z_what_sigma,
-                                noise.normal_like(z_what_sigma, per_example=True))
-        z_l_mean, z_l_sig = self._vae_head(x_hat, "local")
-        z_l = reparameterize(z_l_mean, z_l_sig, noise.normal_like(z_l_sig, per_example=True))
+        tracing.count("glimpse.scramble")
+        with tracing.span("forward.glimpse_local"):
+            perm = noise.batch_permutation(nh * nw, b)  # one for the batch, every rank's
+            eps_what = noise.normal_like(z_what_sigma, per_example=True)
+            patches = x.reshape(b * k, nh, p, nw, p, c).permute(0, 1, 3, 2, 4, 5)
+            patches = torch.index_select(patches.reshape(b * k, nh * nw, p, p, c), 1, perm)
+            x_hat = patches.reshape(b * k, nh, nw, p, p, c).permute(0, 1, 3, 2, 4, 5)
+            x_hat = x_hat.reshape(b * k, gh, gw, c)
+            z_l_mean, z_l_sig = self._vae_head(x_hat, "local")
+            z_l = reparameterize(z_l_mean, z_l_sig, noise.normal_like(z_l_sig, per_example=True))
+        z_what = reparameterize(z_what_mean, z_what_sigma, eps_what)
         return (z_what, z_what_mean, z_what_sigma, z_l, z_l_mean, z_l_sig,
                 x_hat.reshape(b, k, gh, gw, c))
 

@@ -36,7 +36,9 @@ runs eagerly on a mesh of more than one process (data and tensor
 parallelism: its draws take the mesh's data rank and size), on the CPU, with
 the port's tracing on (the spans need each step's Python), under autograd's
 anomaly mode (``--debug_nans``, which reads every gradient on the host),
-where a draw has no static form (a permutation) and where the capture fails
+where a draw has no static form (``Noise.permutation``; the glimpse
+scramble's ``Noise.batch_permutation`` is a uniform draw, argsorted on the
+device, and so is replayed like any other) and where the capture fails
 (a body that waits for the card; a warning names the error, once a batch
 shape). The counters ``step.graphed`` (a replay) and ``step.eager`` (a call
 that ran the body's Python eagerly: a recording, a fallback, several
@@ -279,12 +281,13 @@ class GraphedStep:
             kept = False
         after = tracing.counters()
         state.step, state.opt_state = step, opt_state
+        counts = {k: v - counted.get(k, 0) for k, v in after.items() if v != counted.get(k, 0)}
+        # The capture ran nothing: the first replay, or the eager step that
+        # takes over, counts it.
+        for name, n in counts.items():
+            tracing.count(name, -n)
         if not kept:
             shape.eager, shape.replay, shape.out, shape.batch = True, None, {}, None
             return False
-        shape.counts = {k: v - counted.get(k, 0) for k, v in after.items()
-                        if v != counted.get(k, 0)}
-        # The capture counted what the first replay counts again.
-        for name, n in shape.counts.items():
-            tracing.count(name, -n)
+        shape.counts = counts
         return True

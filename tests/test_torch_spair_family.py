@@ -11,7 +11,9 @@ The JAX side runs as tests/test_torch_spair_step.py runs it
 0). The port gets the converted parameters, render noise 0, and the JAX
 side's draws replayed in order: the scramble's uniforms, the
 reparameterization normals, the Concrete uniforms and, for LGGlimpseSPAIR,
-the one shared patch permutation.
+the one shared patch permutation, in the port's form of it
+(``Noise.batch_permutation``: [B, n] uniforms whose row 0 sorts in the
+JAX permutation's order).
 
 Held: every SpairOutput field (atol 1e-4, rtol 1e-4), every metric (rtol
 1e-4), the clipped gradients tensor by tensor (rtol 1e-3, atol 1e-6 max|g|)
@@ -72,11 +74,18 @@ def small_configs(variant: str):
     return jax_cfg, port_cfg
 
 
+def as_batch_permutation(perm: np.ndarray, rows: int) -> np.ndarray:
+    """The draw of ``Noise.batch_permutation`` that gives ``perm``: [rows, n]
+    float64 uniforms whose row 0 sorts in perm's order."""
+    rank = np.argsort(perm)
+    return np.tile((rank + 0.5) / len(perm), (rows, 1))
+
+
 def record_draws(mp):
     """Wraps every sampler of the JAX package's SPAIR forward so that each draw
     is also kept, in call order: the scramble's uniforms, the normals of
     ``reparameterize``, the Concrete uniforms, the glimpse scramble's shared
-    permutation and the unfused render's noise."""
+    permutation (as the port draws it) and the unfused render's noise."""
     draws = []
     orig_reparam = jax_nets.reparameterize
     orig_concrete = jax_nets.concrete_binary_pre_sigmoid_sample
@@ -99,7 +108,7 @@ def record_draws(mp):
 
     def permutation(key, n, *args, **kwargs):
         perm = orig_permutation(key, n, *args, **kwargs)
-        draws.append(np.array(perm))
+        draws.append(as_batch_permutation(np.array(perm), B))
         return perm
 
     def render(full, bg, z_depth, z_pres, z_pres_logits, key, training, num_channel):

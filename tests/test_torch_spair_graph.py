@@ -14,6 +14,13 @@ the CPU under the stand-in capture of ``tests/test_torch_graphs.py``.
 - The SPAIR step's recording sees its render seed and its step read; the
   VAE family's steps (configs #2 and #4) record neither, and record and
   capture as before.
+- A body that draws a batch permutation (``Noise.batch_permutation``, the
+  glimpse scramble's) is captured and replayed, the permutation's uniforms
+  a static draw made before each replay: the eager step's metrics,
+  parameters and generator state, with and without replayed draws, and a
+  new permutation most steps. The first half of a replayed draw gives the
+  same permutation to half the batch; LGGlimpseSPAIR's step records the
+  draw at [B, n] in float64 and counts one scramble a step.
 """
 
 from __future__ import annotations
@@ -116,6 +123,103 @@ def test_a_replay_of_other_draws_draws_nothing_for_the_graph():
     with pytest.raises(ValueError, match="replayed noise"):
         step(state, torch.rand((B, D)), replay=[d[:2] for d in draws[2]])
     assert torch.equal(state.generator.get_state(), before)
+
+
+# -------------------------------------------------------------- the batch permutation
+
+def permuting(state, batch, noise):
+    """The toy step of ``test_torch_graphs.py`` with its features in the order
+    of a batch permutation, drawn between its draws."""
+    u = noise.uniform((batch.shape[0], D), per_example=True)
+    perm = noise.batch_permutation(D, batch.shape[0])
+    keep = noise.keep((batch.shape[0], H), 0.2, per_example=True)
+    z = noise.normal((batch.shape[0], H))
+    h = torch.where(keep, state.model.lin((batch + u)[:, perm]) / 0.8, torch.zeros(())) + z
+    loss = torch.mean(h ** 2)
+    grads = torch.autograd.grad(loss, state.params)
+    with torch.no_grad():
+        for p, g in zip(state.params, grads):
+            p.sub_(0.1 * g)
+        state.opt_state[0].add_(1)
+    state.step += 1
+    return {"loss": loss.detach(), "perm": perm}
+
+
+def permutation_replays(n, rows=B):
+    """``replays(n)`` with each step's permutation uniforms in their place."""
+    g = torch.Generator().manual_seed(12)
+    return [[u, torch.rand((rows, D), generator=g, dtype=torch.float64), keep, z]
+            for u, keep, z in replays(n, rows=rows)]
+
+
+@pytest.mark.parametrize("replayed", [False, True])
+def test_a_body_that_draws_a_batch_permutation_is_graphed(replayed):
+    n = 6
+    draws = permutation_replays(n) if replayed else None
+    eager_state, state = make_state(), make_state()
+    step, log = graphed(permuting, state)
+    want = run(step.eager, eager_state, n, draws)
+    got = run(step, state, n, draws)
+    same_metrics(got, want)
+    same_states(state, eager_state)
+    assert log == ["capture"] + ["replay"] * (n - 1)
+    shape = next(iter(step.shapes.values()))
+    assert not shape.eager and shape.seeds == []
+    assert [(s, d) for s, d, _ in shape.draws][1] == ((B, D), torch.float64)
+    perms = {tuple(m["perm"].tolist()) for m in got}
+    assert all(sorted(p) == list(range(D)) for p in perms) and len(perms) > 1
+
+
+def test_half_a_replayed_permutation_draw_is_the_same_permutation():
+    from split_vae_torch.core.noise import Noise
+
+    u = torch.rand((8, 16), dtype=torch.float64, generator=torch.Generator().manual_seed(1))
+    whole = Noise(torch.Generator(), [u]).batch_permutation(16, 8)
+    half = Noise(torch.Generator(), [u[:4]]).batch_permutation(16, 4)
+    assert torch.equal(whole, half) and torch.equal(whole, torch.argsort(u[0]))
+    # Two data ranks of 4 rows take the draw at the global batch and the same permutation.
+    for rank in (0, 1):
+        drawn = Noise(torch.Generator(), [u], rank=rank, world=2).batch_permutation(16, 4)
+        assert torch.equal(drawn, whole)
+
+
+def test_the_glimpse_step_records_its_permutation_draw():
+    """LGGlimpseSPAIR's train step on the CPU: its recording holds the
+    permutation's [B, n] float64 draw, after z_where's normals and before
+    z_what's, its render seed last; it stays eager (the CPU's foreach
+    optimizer), equal to its ``eager``, and counts a scramble a step."""
+    from split_vae_torch.core.config import config5_glimpse
+
+    cfg = config5_glimpse(batch_size=2, latent_size=8, bg_latent_size=8, local_latent_size=8,
+                          object_size=16, patch_size=4, image_size=(24, 24, 3))
+    x = torch.rand((2, 24, 24, 3), generator=torch.Generator().manual_seed(2))
+    outs, states = [], []
+    for graph in (False, True):
+        torch.manual_seed(0)
+        state = create_train_state(get_spair_model(cfg, device="cpu"),
+                                   spair_optimizer(cfg.learning_rate), seed=3)
+        step = make_spair_train_step(cfg)
+        if graph:
+            log = Log()
+            log.state = state
+            step.capture, step.any_device = stand_in(log), True
+        before = tracing.counters().get("glimpse.scramble", 0)
+        out = []
+        for _ in range(3):
+            state, m = (step if graph else step.eager)(state, x)
+            out.append({k: v.clone() for k, v in m.items()})
+        assert tracing.counters()["glimpse.scramble"] - before == 3
+        outs.append(out)
+        states.append(state)
+    same_metrics(outs[1], outs[0])
+    assert torch.equal(states[0].generator.get_state(), states[1].generator.get_state())
+    assert log == ["capture"]
+    shape = next(iter(step.shapes.values()))
+    drawn = [(s, d) for s, d, _ in shape.draws]
+    # The background's normals, z_where's, the permutation, z_what's, z_l's,
+    # z_depth's, the presence uniforms, the render seed.
+    assert drawn[2] == ((2, 16), torch.float64) and len(drawn) == 8
+    assert shape.seeds == [7] and shape.eager
 
 
 # -------------------------------------------------------------- the step's count
