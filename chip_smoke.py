@@ -115,6 +115,13 @@ Phases, each of which must pass:
      within 16 ulp of it, and twice from one state bit-equal, the step's
      CUDA-event ms beside its bytes (44 a parameter at 3.35 TB/s), each
      pass's profiled ms, and the foreach chain's device ms and launches;
+     the count prior's pair (kernels/count_prior.py, run_count_prior)
+     against the loop of ATen ops on the card at the CPU tests' cases (B 1,
+     7, 256; grids 1x1, 4x4, 6x6, 3x2; priors 1e-4, 0.5, 0.99 as numbers and
+     device tensors; logits at +-10; exp overflowing on either side), rtol
+     1e-5, atol 1e-6, NaN and inf where the loop has them, two runs bit-equal,
+     then both sides' forward and forward + backward device ms at config #5's
+     shapes as CUDA graphs replay them, their launches and the bound;
   5. one small train step on the card against the same step on the CPU (plain
      kernels' versions) for LG-SPAIR (full-canvas and windowed render),
      BG-SPAIR, LGGlimpseSPAIR, LGVae, LGGMVae and GMVae (the GM steps with
@@ -126,7 +133,9 @@ Phases, each of which must pass:
      replay (step.graphed, step.eager; LGGlimpseSPAIR's glimpse.scramble one
      a step), every loss finite, no update skipped, no
      call of interp_matrix (no dense interpolation weights), the fused
-     optimizer's three launches a step, the parameters and the optimizer's
+     optimizer's three launches a step, the count prior's pair once each
+     way a step on the SPAIR paths and never on the VAE paths, the
+     parameters and the optimizer's
      state float32 after the steps and the peak device memory; then one eval
      step; P4's losses beside P1's; P10 and P11 as P1 and P5, their first
      losses within rtol 0.02 of P1's and P5's; the resize2x -> conv fusion
@@ -172,9 +181,10 @@ Phases, each of which must pass:
      the records at step 20, the backend, on 2 cards one call of the
      gradients' all-reduce a step on each rank, on one card the flat
      all-reduce leaving its tensors as they were;
-  6. one JSON line of the kernels (the fused optimizer's row last: its
+  6. one JSON line of the kernels (then the fused optimizer's row: its
      times at config #5's leaves, its launches on each main path that
-     counts them, P1-P12 and P17 but the classifier's), then the card, then
+     counts them, P1-P12 and P17 but the classifier's; the count prior's
+     row last, with its launches on P1-P5, P8, P10, P11), then the card, then
      {"ok": true, ...}.
 
 Exits non-zero, printing no result, without CUDA or without the repository
@@ -255,6 +265,42 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def by_name(torch, fn, steps=10):
+    """Device ms a call of fn by kernel name (torch.profiler, after one call
+    outside the profile), and the launches a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kernels:
+        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3 / steps
+    return names, len(kernels) / steps
+
+
+def graph_ms(torch, fn, reps: int = 50):
+    """Median device ms of one replay of a CUDA graph of fn (captured after
+    three warm-up calls on a side stream), as a train step's graph runs it:
+    each kernel with the gap the replay leaves before the next."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps=reps)
+    del graph
+    return ms
 
 
 def render_inputs(torch, b, grid, os_, canvas, c, seed, z_scale=1.0):
@@ -746,23 +792,6 @@ def run_adam(torch, np):
         ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
         return float(((a - b).abs() / ulp).max())
 
-    def by_name(fn, steps=10):
-        """Device ms a call of fn by kernel name (torch.profiler, after one
-        call outside the profile), and the launches a call."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-        names = {}
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        for e in kernels:
-            names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3 / steps
-        return names, len(kernels) / steps
-
     row, gaps = None, {}
     for label, shapes in (("c5", adam_shapes("c5")), ("c2", adam_shapes("c2"))):
         n = sum(int(np.prod(s)) for s in shapes)
@@ -828,7 +857,8 @@ def run_adam(torch, np):
         grads = fresh(shapes, 2, 1e-4)
         with torch.no_grad():
             ms = cuda_ms(lambda: optim.apply_updates(tx, params, grads, state))
-            names, launches = by_name(lambda: optim.apply_updates(tx, params, grads, state))
+            names, launches = by_name(torch,
+                                      lambda: optim.apply_updates(tx, params, grads, state))
             ref_params = [p.contiguous() for p in fresh(shapes, 1, 0.1)]
             ref_state = [tx.init(ref_params)]
 
@@ -836,7 +866,7 @@ def run_adam(torch, np):
                 updates, ref_state[0] = tx.update(grads, ref_state[0])
                 torch._foreach_add_(ref_params, updates)
 
-            plain, plain_launches = by_name(foreach)
+            plain, plain_launches = by_name(torch, foreach)
         if int(state.total_notfinite) != 0:
             fail(f"adam {label}: a timed step was skipped")
         bound = 44 * n / PEAK_BYTES * 1e3
@@ -860,6 +890,157 @@ def run_adam(torch, np):
     row.update(max_abs_err=max(g for _, g in gaps.values()),
                max_ulps_over_max_norm={k: u for k, (u, _) in gaps.items()})
     return row
+
+
+# The count prior's cases on the card (tests/test_torch_count_prior.py's, and
+# config #5's shapes first): (B, grid, prior, prior as a device tensor, extreme).
+COUNT_PRIOR_CASES = (
+    [(256, (4, 4), 0.5, True, None)]
+    + [(b, grid, prior, tensor, None) for b in (1, 7, 256) for grid in ((1, 1), (4, 4), (6, 6),
+                                                                         (3, 2))
+       for prior in (1e-4, 0.5, 0.99) for tensor in (False, True)]
+    + [(7, (4, 4), 0.5, False, extreme) for extreme in ("logits_at_10", "posterior_exp_overflows",
+                                                        "prior_exp_overflows")])
+COUNT_PRIOR_RTOL, COUNT_PRIOR_ATOL = 1e-5, 1e-6  # the CPU tests' limits
+
+
+def count_prior_inputs(torch, b, grid, seed, extreme=None, tau=0.8):
+    """pres, logits, pre [B, gh, gw, 1] on the card: logits uniform in
+    (-10, 10), pre a Binary-Concrete sample of them; ``extreme`` as in the
+    CPU tests (logits at +-10 exactly, or exp(-pre tau + logits) past
+    float32's range on the posterior's or the prior's side)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, *grid, 1)
+    logits = torch.rand(shape, generator=gen, device="cuda") * 20 - 10
+    u = torch.rand(shape, generator=gen, device="cuda") * 0.98 + 0.01
+    pre = (logits + torch.log(u) - torch.log(1 - u)) / tau
+    if extreme == "logits_at_10":
+        logits = torch.where(torch.arange(logits.numel(), device="cuda").reshape(shape) % 2 == 1,
+                             10.0, -10.0)
+    elif extreme is not None:
+        posterior = extreme == "posterior_exp_overflows"
+        logits[:, 1:] = 60.0 if posterior else -50.0
+        pre[:, 1:] = -60.0 if posterior else -120.0
+    return torch.sigmoid(pre), logits, pre
+
+
+def run_count_prior(torch, np):
+    """The count prior's kernel pair (kernels/count_prior.py) against the loop
+    of ATen ops (ops/count_prior.py::count_kl_loop), both on the card (CUDA
+    inputs of another dtype than float32 must raise, not fall back): the
+    value and the gradients of the logits and of pre at the CPU tests' cases
+    (limits rtol 1e-5, atol 1e-6; NaN and inf where the loop has them), two
+    runs bit-equal; then at config #5's shapes the device ms of each side's
+    forward and forward + backward as CUDA graphs replay them, the launches a
+    call, and the bound. Returns the kernels line's row."""
+    from split_vae_torch.core import tracing
+    from split_vae_torch.core.config import config5
+    from split_vae_torch.ops.count_prior import count_kl_loop, z_pres_count_kl
+
+    def value_and_grads(fn, pres, logits, pre, prior, tau):
+        lo, pr = logits.clone().requires_grad_(True), pre.clone().requires_grad_(True)
+        value = fn(pres, lo, pr, prior, tau)
+        return [value.detach()] + list(torch.autograd.grad(value, (lo, pr)))
+
+    def gap(a, b):
+        """Largest |a - b| over max |b| among the finite entries; inf where
+        the non-finite entries differ."""
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)) or not torch.equal(
+                a[~torch.isfinite(a)].nan_to_num(), b[~torch.isfinite(b)].nan_to_num()):
+            return float("inf")
+        keep = torch.isfinite(b)
+        if not keep.any():
+            return 0.0
+        return float((a[keep] - b[keep]).abs().max() / b[keep].abs().max().clamp_min(1e-30))
+
+    tau = config5().tau
+    # The card takes the kernels whatever the dtype: another than float32 raises, never the loop.
+    for dtype in (torch.float64, torch.bfloat16):
+        wrong = [t.to(dtype) for t in count_prior_inputs(torch, 4, (4, 4), 99, tau=tau)]
+        before = tracing.counters()
+        try:
+            z_pres_count_kl(*wrong, 0.5, tau)
+        except ValueError:
+            pass
+        else:
+            fail(f"count prior: CUDA {dtype} inputs did not raise")
+        if tracing.counters() != before:
+            fail(f"count prior: CUDA {dtype} inputs launched a kernel")
+    worst = [0.0, 0.0, 0.0]
+    for i, (b, grid, prior_prob, as_tensor, extreme) in enumerate(COUNT_PRIOR_CASES):
+        pres, logits, pre = count_prior_inputs(torch, b, grid, 100 + i, extreme, tau)
+        prior = (torch.tensor(prior_prob, dtype=torch.float32, device="cuda") if as_tensor
+                 else prior_prob)
+        before = tracing.counters()
+        kernel = value_and_grads(z_pres_count_kl, pres, logits, pre, prior, tau)
+        after = tracing.counters()
+        launched = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in ("count_prior.fwd", "count_prior.bwd")}
+        if launched != {"count_prior.fwd": 1, "count_prior.bwd": 1}:
+            fail(f"count prior B={b} grid {grid}: launches {launched}, not one each way")
+        again = value_and_grads(z_pres_count_kl, pres, logits, pre, prior, tau)
+        if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(kernel, again)):  # bit for bit, NaN included
+            fail(f"count prior B={b} grid {grid} prior {prior_prob}: two runs differ")
+        loop = value_and_grads(count_kl_loop, pres, logits, pre, prior, tau)
+        for j, (what, x, y) in enumerate(zip(("value", "g_logits", "g_pre"), kernel, loop)):
+            finite = torch.isfinite(y)
+            held = torch.equal(torch.isnan(x), torch.isnan(y)) and torch.equal(
+                x[torch.isinf(y)], y[torch.isinf(y)]) and torch.allclose(
+                x[finite], y[finite], rtol=COUNT_PRIOR_RTOL, atol=COUNT_PRIOR_ATOL)
+            if not held:
+                fail(f"count prior B={b} grid {grid} prior {prior_prob} ({extreme}): {what} of "
+                     f"the kernels is not the loop's (relative gap {gap(x, y):.3g})")
+            worst[j] = max(worst[j], gap(x, y))
+        if i == 0 or extreme is not None:
+            log(f"  count prior B={b} grid {grid} prior {prior_prob}"
+                f"{' (device tensor)' if as_tensor else ''}{f' {extreme}' if extreme else ''}: "
+                f"value {kernel[0].item():.6g} (loop {loop[0].item():.6g}); relative gaps "
+                + ", ".join(f"{w} {gap(x, y):.3g}" for w, x, y in
+                            zip(("value", "g_logits", "g_pre"), kernel, loop)))
+    log(f"count prior: the kernels against the loop at {len(COUNT_PRIOR_CASES)} cases, two runs "
+        f"bit-equal; largest relative gaps: value {worst[0]:.3g}, g_logits {worst[1]:.3g}, "
+        f"g_pre {worst[2]:.3g}")
+
+    # Times at config #5's shapes, the prior a device tensor as the train step hands it.
+    b, grid = 256, (4, 4)
+    pres, logits, pre = count_prior_inputs(torch, b, grid, 7, tau=tau)
+    lo, pr = logits.clone().requires_grad_(True), pre.clone().requires_grad_(True)
+    prior = torch.tensor(0.5, dtype=torch.float32, device="cuda")
+    times, launches = {}, {}
+    for side, fn in (("kernels", z_pres_count_kl), ("loop", count_kl_loop)):
+        def forward(fn=fn):
+            return fn(pres, lo, pr, prior, tau)
+
+        def both(fn=fn):
+            return torch.autograd.grad(fn(pres, lo, pr, prior, tau), (lo, pr))
+
+        times[side] = (graph_ms(torch, forward), graph_ms(torch, both))
+        launches[side] = (by_name(torch, forward)[1], by_name(torch, both)[1])
+    one = torch.zeros(1, device="cuda")
+    floor = graph_ms(torch, lambda: one.fill_(0.0))
+    k = grid[0] * grid[1]
+    fwd_bytes, bwd_bytes = 4 * (3 * b * k + b + b * k), 4 * (3 * b * k + b + 2 * b * k)
+    bytes_ms = (fwd_bytes + bwd_bytes) / PEAK_BYTES * 1e3
+    for side, (fwd, total) in times.items():
+        log(f"count prior at B={b}, K={k} ({side}): forward {fwd:.4f} ms in "
+            f"{launches[side][0]:.0f} launches, forward + backward {total:.4f} ms in "
+            f"{launches[side][1]:.0f} launches (backward {total - fwd:.4f} ms); graph replays")
+    log(f"count prior bound: bytes {(fwd_bytes + bwd_bytes) / 1e3:.1f} KB = "
+        f"{bytes_ms * 1e3:.3f} us; a one-element fill in a graph {floor:.4f} ms (two launches: "
+        f"{2 * floor:.4f} ms)")
+    ms, plain_ms = times["kernels"][1], times["loop"][1]
+    return {"name": "count_prior", "route": "cuda",
+            "source": "split_vae_torch/csrc/count_prior.cu",
+            "replaces": "none: the JAX package's lax.scan (split_vae_tpu/ops/count_prior.py)",
+            "ms": ms, "kernel_ms": ms, "fwd_ms": times["kernels"][0],
+            "bwd_ms": ms - times["kernels"][0], "plain_ms": plain_ms,
+            "plain_fwd_ms": times["loop"][0], "plain_bwd_ms": plain_ms - times["loop"][0],
+            "launches_a_call": launches["kernels"][1],
+            "plain_launches_a_call": launches["loop"][1],
+            "bound_ms": max(bytes_ms, 2 * floor), "bound_by": "launch floor"
+            if 2 * floor > bytes_ms else "bytes", "library_ms": None,
+            "max_rel_gap": max(worst)}
 
 
 class RecordingNoise:
@@ -1202,6 +1383,19 @@ def hold_fused_optimizer(name, launched, steps):
     FUSED_BY_PATH[name] = launched
 
 
+COUNT_PRIOR_BY_PATH = {}  # the count prior's launches (kernels/count_prior.py) on each main path
+
+
+def hold_count_prior(name, steps):
+    """Fails unless the count prior's kernels ran once each way in each of
+    ``steps`` train steps (0 on a VAE path), replays included."""
+    got = read_counts(("count_prior.fwd", "count_prior.bwd"))
+    if got != {"count_prior.fwd": steps, "count_prior.bwd": steps}:
+        fail(f"{name}: the count prior's kernels launched {got} in the train steps, not "
+             f"{steps} each way")
+    COUNT_PRIOR_BY_PATH[name] = got["count_prior.fwd"] + got["count_prior.bwd"]
+
+
 def run_steps(torch, np, name, train_step, state, batches):
     """TRAIN_STEPS train steps on the two batches in turn, the peak device
     memory counted from their start; returns the state and the losses after
@@ -1298,6 +1492,7 @@ def run_path(torch, np, name, cfg, windowed_render=False):
     paths = hold_graphed(name, len(losses),
                          len(losses) if cfg.model == "lg_glimpse_spair" else 0)
     hold_fused_optimizer(name, read_fused(), len(losses))
+    hold_count_prior(name, len(losses))
     check_float32_state(name, state)
     if dense.calls:
         fail(f"{name}: the train steps built dense interpolation weights ({dense.calls} calls "
@@ -1354,6 +1549,7 @@ def run_vae_path(torch, np, name, cfg, hw):
     launches = read_launches()
     hold_graphed(name, len(losses))
     hold_fused_optimizer(name, read_fused(), len(losses))
+    hold_count_prior(name, 0)
     check_float32_state(name, state)
     if any(launches.values()):
         fail(f"{name}: a SPAIR kernel was launched on the {cfg.model} path: {launches}")
@@ -2634,8 +2830,9 @@ def main() -> None:
                 chain_ms["crop_" + name] = t["chain_" + name]
                 bound["crop_" + name] = bd[name]
 
-    # The fused optimizer at config #5's and config #2's leaves.
+    # The fused optimizer at config #5's and config #2's leaves; the count prior.
     adam_row = run_adam(torch, np)
+    count_prior_row = run_count_prior(torch, np)
 
     # Phase 5: small steps against the CPU, then the main paths.
     small = dict(batch_size=4, latent_size=8, bg_latent_size=8, local_latent_size=8,
@@ -2783,6 +2980,8 @@ def main() -> None:
         })
     adam_row.update(launches=sum(FUSED_BY_PATH.values()), launches_by_path=dict(FUSED_BY_PATH))
     kernels.append(adam_row)
+    count_prior_row.update(launches_by_path=dict(COUNT_PRIOR_BY_PATH))
+    kernels.append(count_prior_row)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

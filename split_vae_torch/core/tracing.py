@@ -18,7 +18,8 @@ turns tracing on inside its block and writes the profiler's trace.
 ``count(name, n)`` adds to a counter whatever the tracing's state (one dict
 update); ``counters()`` is a copy of them all. The kernels count their
 launches here (``render.fwd``, ``render.bwd``, ``render_windowed.fwd``,
-``render_windowed.bwd``, ``crop.fwd``, ``crop.bwd``); the train step its
+``render_windowed.bwd``, ``crop.fwd``, ``crop.bwd``, ``count_prior.fwd``,
+``count_prior.bwd``); the train step its
 path (``step.graphed``, ``step.eager``) and the batch shapes it recorded
 under cuDNN's autotuner (``step.autotuned``, ``train/graphs.py``);
 LGGlimpseSPAIR its glimpse scrambles (``glimpse.scramble``,

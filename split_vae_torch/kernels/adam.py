@@ -32,7 +32,7 @@ import torch
 
 from split_vae_torch.core import tracing
 from split_vae_torch.kernels.build import build as build_library
-from split_vae_torch.kernels.build import check_tensor, stream_of
+from split_vae_torch.kernels.build import check_tensor, f32, stream_of
 
 _lib = None
 _DTYPE = operator.attrgetter("dtype")
@@ -69,11 +69,6 @@ def _load():
         lib.adam_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def _f32(x: float) -> float:
-    """x rounded once to float32, as a foreach call takes a Python scalar."""
-    return float(np.float32(x))
 
 
 def on_card(params: List[torch.Tensor]) -> bool:
@@ -175,9 +170,9 @@ def step_(found: Leaves, count: torch.Tensor, notfinite: torch.Tensor,
     launched = ctypes.c_int(0)
     err = lib.adam_step(
         found.addresses.ctypes.data, found.sizes.ctypes.data, found.layouts.ctypes.data, n,
-        _f32(b1), _f32(1 - b1), _f32(b2), _f32(1 - b2), _f32(eps), _f32(lr),
+        f32(b1), f32(1 - b1), f32(b2), f32(1 - b2), f32(eps), f32(lr),
         None if lr_tensor is None else lr_tensor.data_ptr(),
-        _f32(max_norm if max_norm is not None else 0.0), int(max_norm is not None),
+        f32(max_norm if max_norm is not None else 0.0), int(max_norm is not None),
         count.data_ptr(), notfinite.data_ptr(), workspace.data_ptr(), blocks,
         stream_of(workspace), ctypes.byref(launched))
     if err != 0:

@@ -19,13 +19,14 @@ import subprocess
 import tempfile
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PACKAGE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build")
 _HEADERS = ("paste_taps.cuh", "philox.cuh")
-NAMES = ("render", "crop", "render_windowed", "adam")
+NAMES = ("render", "crop", "render_windowed", "adam", "count_prior")
 
 
 def _nvcc() -> str:
@@ -91,6 +92,11 @@ def build_all() -> Dict[str, str]:
     if errors:
         raise errors[0]
     return done
+
+
+def f32(x: float) -> float:
+    """x rounded once to float32, as an ATen op takes a Python scalar."""
+    return float(np.float32(x))
 
 
 def stream_of(t: torch.Tensor) -> int:
